@@ -7,8 +7,11 @@ is this package's own copy of the reference's; the device back-end is
 here imports JAX or the ``openhevc_tpu`` package.
 
     from openhevc_tpu_torch.decoder.frontend import Decoder
-    from openhevc_tpu_torch.torch_backend import CudaBackend
-    frames = Decoder(backend=CudaBackend(), check_md5=True).decode_stream(data)
+    frames = Decoder(check_md5=True).decode_stream(data)     # on the card
+
+``Decoder(backend=CudaBackend(device="cpu"))`` runs the same frame step
+with the kernels' plain PyTorch versions, ``Decoder(backend="numpy")`` the
+host NumPy reconstruction; ``Decoder()`` raises where there is no card.
 """
 
 __version__ = "0.1.0"

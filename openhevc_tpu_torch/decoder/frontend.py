@@ -590,14 +590,26 @@ class Frontend:
 
 
 class Decoder:
-    """Full decoder: front-end + NumPy exact back-end + DPB.
+    """Full decoder: front-end + device back-end + DPB.
 
-    This is the correctness-reference pipeline; the TPU back-end
-    (openhevc_tpu.tpu) plugs in behind the same FramePlan contract.
+    ``backend=None`` (the default) reconstructs on the card through
+    ``torch_backend.CudaBackend()``, which raises when no CUDA device is
+    present.  ``CudaBackend(device="cpu")`` runs the same frame step with
+    the kernels' plain PyTorch versions; ``backend="numpy"`` names the
+    host NumPy reconstruction (``recon_np``), the exact reference
+    pipeline.
     """
 
     def __init__(self, backend=None, check_md5=True, use_native=True,
                  encrypt_params=0, prefetch_wire=True):
+        if backend is None:
+            # imported here: torch_backend imports decoder at load time
+            from ..torch_backend import CudaBackend
+            backend = CudaBackend()
+        elif isinstance(backend, str):
+            if backend != "numpy":
+                raise ValueError(f"unknown backend {backend!r}")
+            backend = None      # _reconstruct: recon_np
         # False = this decoder's pictures are not host-output (e.g. the
         # SHVC base layer, consumed on device by the IL upsample): don't
         # start D2H wire transfers that nobody reads — they compete with

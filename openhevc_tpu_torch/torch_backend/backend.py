@@ -10,9 +10,10 @@ kernels.  The reference's single packed int16/nibble blob existed for a
 type its values need and widens to int32 on the device.
 
 Paths are chosen from this backend's device, not from a global backend:
-the sequential intra kernel and the fused deblock+SAO kernel always run
-(``ipal``/``ffilt`` in the reference's terms); the wavefront-scan path,
-the d5 output wire and sharding are not ported.
+the intra kernel (K1) and the fused deblock+SAO kernel always run
+(``ipal``/``ffilt`` in the reference's terms); the reference's XLA
+wavefront-scan intra path, the d5 output wire and sharding are not
+ported.
 """
 
 import numpy as np
@@ -191,7 +192,7 @@ class CudaBackend:
                     add8(("inter", w, h, f), b[f])
                 inter_sizes.append((w, h))
 
-        # ---- intra metadata (sequential kernel, one band per plane) ----
+        # ---- intra metadata (K1, one band per plane) ----
         ipal = ()
         for c in range(3):
             hc = plan.height >> (vs if c else 0)

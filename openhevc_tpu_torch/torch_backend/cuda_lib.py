@@ -11,6 +11,7 @@ import.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -32,15 +33,15 @@ _I = ctypes.c_int
 
 # launcher name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # plane0..2, resid0..2, meta0..2, n_meta0..2, H0..2, W0..2, c_idx0..2,
-    # n_planes, bit_depth, strong, c444, stream
-    "ohk_intra": [_P] * 9 + [_I] * 12 + [_I] * 4 + [_P],
+    # launch (host struct, copied into the launches), stream
+    "ohk_intra": [_P, _P],
+    "ohk_intra_size": [],
     # refs, R, H, W, sel, xs, ys, mvx, mvy, N, w, h, is_luma, hs, vs, bd,
     # out, stream
     "ohk_mc": [_P, _I, _I, _I] + [_P] * 5 + [_I] * 7 + [_P, _P],
-    # plane, H, W, tiles, xs, ys, valid, N, h, w, stream
-    "ohk_paint_i32": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    "ohk_paint_i16": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # pass (host struct, copied into the launch), element bytes, stream
+    "ohk_paint_pass": [_P, _I, _P],
+    "ohk_paint_pass_size": [],
     # plane, H, W, tc, beta, nop, noq, G, K, ld, luma, vertical, bd, stream
     "ohk_deblock": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _P],
@@ -127,6 +128,16 @@ def launch(name, *args):
     err = getattr(lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed with CUDA error {err}")
+
+
+@functools.cache
+def check_size(name, size):
+    """Launcher ``name`` copies a host struct that Python packs with
+    ``struct``; the library exports the struct's C size as ``name_size``.
+    Raise unless the two agree."""
+    if getattr(lib(), name + "_size")() != size:
+        raise RuntimeError(f"{name}: the struct packed in Python does not "
+                           f"match its layout in csrc/")
 
 
 def stream_ptr(device):

@@ -2,8 +2,9 @@
 
 Port of ``openhevc_tpu/tpu/frame_step.py::frame_step`` for the main path
 (8-bit 4:2:0, unweighted prediction, flat dequant): MC through K2 and the
-unweighted uni/bi combine, painted by K3; the residual escapes, X1
-dequant+IDCT and the residual canvas painted by K3; intra through K1;
+unweighted uni/bi combine, painted by one K3 pass; the residual escapes,
+X1 dequant+IDCT and the residual canvas painted by a second K3 pass;
+intra through K1;
 deblocking + SAO through K4; the raw 8-bit output wire.  Everything else
 the reference handles raises NotImplementedError (see ROADMAP.md).
 """
@@ -13,7 +14,7 @@ import torch
 from .filter import build_chroma_grids, build_luma_grids, filter_plane
 from .intra import intra_planes
 from .mc import mc
-from .paint import paint_
+from .paint import paint_groups_
 from .residual import residual_batch
 
 QP_C = (29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37)
@@ -56,9 +57,10 @@ def frame_step(refs, arrays, prof):
     planes = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
 
     # ---- motion compensation: K2 over the compacted work batch, the
-    # unweighted put_hevc_qpel_{uni,bi} combine, K3 paint ----
+    # unweighted put_hevc_qpel_{uni,bi} combine, one K3 pass ----
     off_u = 1 << (14 - bd - 1)
     off_b = 1 << (15 - bd - 1)
+    mc_pass = []
     for (w, h) in prof["inter_sizes"]:
         b = {f: arrays[("inter", w, h, f)]
              for f in ("xs", "ys", "pf", "valid", "i0", "i1", "wxs", "wys",
@@ -75,20 +77,24 @@ def frame_step(refs, arrays, prof):
                               >> (14 - bd), 0, maxv)
             bi = torch.clamp((val0 + val1 + off_b) >> (15 - bd), 0, maxv)
             vals = torch.where(pf == 3, bi, uni).to(torch.int32)
-            paint_(planes[c], vals, b["xs"] >> sh_, b["ys"] >> sv_,
-                   b["valid"])
+            mc_pass.append((planes[c], vals, b["xs"] >> sh_, b["ys"] >> sv_,
+                            b["valid"]))
+    paint_groups_(mc_pass)
 
     # ---- residual canvas: whole-frame dequant+IDCT per (plane, size),
-    # int16-clipped and painted by K3 ----
+    # int16-clipped and painted by one K3 pass ----
     rc16 = [torch.zeros(s, dtype=torch.int16, device=dev) for s in shapes]
+    res_pass = []
     for (c, n, _N, E, E8) in prof["resid_keys"]:
         d = {f: arrays[("resid", c, n, f)]
              for f in ("xs", "ys", "qp", "kind", "xtra", "levels", "valid")}
         levels = _apply_escapes(arrays, c, n, d["levels"], E, E8)
         res = residual_batch(levels, d["qp"], d["kind"], n, bd,
                              xtra=d["xtra"])
-        paint_(rc16[c], torch.clamp(res, -32768, 32767).to(torch.int16),
-               d["xs"], d["ys"], d["valid"])
+        res_pass.append((rc16[c],
+                         torch.clamp(res, -32768, 32767).to(torch.int16),
+                         d["xs"], d["ys"], d["valid"]))
+    paint_groups_(res_pass)
     rcanvas = [r.to(torch.int32) for r in rc16]
     # inter pixels become final here; intra pixels are overwritten by K1
     planes = [torch.clamp(planes[c] + rcanvas[c], 0, maxv) for c in range(3)]

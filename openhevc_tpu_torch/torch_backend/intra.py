@@ -1,16 +1,21 @@
-"""K1: sequential intra reconstruction (csrc/intra.cu) and its plain version.
+"""K1: intra reconstruction as a dataflow wavefront (csrc/intra.cu), its
+plain version, and the plain version of its schedule.
 
 Counterpart of ``openhevc_tpu/tpu/intra_pallas.py``.  Every intra block of
-a plane is rebuilt in decode order from the plane's current samples: the
-blocks form one dependency chain, so one CUDA thread block walks each
-plane's metadata (the three planes run as a grid of three blocks).
-Metadata rows are ``(x, y, log2n, mode, angle, inv, flags, valid)``; flags
-bits 0-4 are the availabilities (bottom-left, left, up-left, up,
-up-right) and bit 5 requests reference smoothing.
+a plane is rebuilt from the plane's current samples, with the sequential
+kernel's arithmetic.  The plain version walks the blocks in decode order;
+the CUDA kernel walks them as a wavefront across the card, each block
+waiting only for the blocks that wrote the samples it reads
+(``intra_schedule`` is that rule in plain Python).  Metadata rows are
+``(x, y, log2n, mode, angle, inv, flags, valid)``; flags bits 0-4 are the
+availabilities (bottom-left, left, up-left, up, up-right) and bit 5
+requests reference smoothing.
 
 Reads outside the picture clamp their coordinates; that is the edge
 replication the TPU kernel kept in a 64-sample apron.
 """
+
+import struct
 
 import numpy as np
 import torch
@@ -144,41 +149,121 @@ def _predict(top, left, n, mode, angle, inv, c_idx, bd, dev):
     return pv if is_ver else pv.t()
 
 
+def intra_block_plain_(out, res, row, c_idx, bd, strong, c444):
+    """Rebuild one metadata row's block of ``out`` in place (``res`` is the
+    int64 residual canvas): the per-block step of the plain version."""
+    x, y, log2n, mode, angle, inv, flags, valid = row
+    if not valid:
+        return
+    big = c_idx == 0 or c444
+    n = 1 << min(max(log2n, 2), 5 if big else 4)
+    top, left = _refs(out, x, y, n, flags, bd)
+    if big and n != 4 and flags & 32:
+        top, left = _smooth(top, left, n, c_idx, bd, strong)
+    pred = _predict(top, left, n, mode, angle, inv, c_idx, bd, out.device)
+    H, W = out.shape
+    h_, w_ = min(n, H - y), min(n, W - x)
+    val = torch.clamp(pred[:h_, :w_] + res[y:y + h_, x:x + w_], 0,
+                      (1 << bd) - 1)
+    out[y:y + h_, x:x + w_] = val.to(out.dtype)
+
+
 def intra_plane_plain(plane, resid, meta, c_idx, bd, strong, c444):
-    """Plain version of one plane: returns the reconstructed (H, W) int32
-    plane (the input is not modified)."""
+    """Plain version of one plane: the blocks in decode order.  Returns the
+    reconstructed (H, W) int32 plane (the input is not modified)."""
     out = plane.clone()
     res = resid.to(torch.int64)
-    big = c_idx == 0 or c444
-    max_log2 = 5 if big else 4
-    maxv = (1 << bd) - 1
     for row in meta.reshape(-1, NF).tolist():
-        x, y, log2n, mode, angle, inv, flags, valid = row
-        if not valid:
-            continue
-        n = 1 << min(max(log2n, 2), max_log2)
-        top, left = _refs(out, x, y, n, flags, bd)
-        if big and n != 4 and flags & 32:
-            top, left = _smooth(top, left, n, c_idx, bd, strong)
-        pred = _predict(top, left, n, mode, angle, inv, c_idx, bd, out.device)
-        H, W = out.shape
-        h_, w_ = min(n, H - y), min(n, W - x)
-        val = torch.clamp(pred[:h_, :w_] + res[y:y + h_, x:x + w_], 0, maxv)
-        out[y:y + h_, x:x + w_] = val.to(out.dtype)
+        intra_block_plain_(out, res, row, c_idx, bd, strong, c444)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the schedule: which earlier blocks each block waits for
+# ---------------------------------------------------------------------------
+
+ERRORS = {1: "two blocks write one 4x4 unit",
+          2: "a block reads a sample that a later block writes",
+          4: "a wait for a neighbour ran out of time",
+          8: "a block lies off the 4-sample grid"}
+
+
+def intra_schedule(meta, H, W, c_idx, c444=False):
+    """The kernel's dependency rule in plain Python, for one plane.
+
+    Each valid block owns the 4x4 units it writes inside the (H, W) plane.
+    A block depends on the owners of the units holding the neighbour
+    samples it reads: under its five availability flags, at the clamped
+    coordinates it reads.  Units that no block owns are final at launch; a
+    block's own units are read before it writes them.  Returns each row's
+    level (0: depends on no block; -1: row not valid); a block's level is
+    one more than its deepest dependency, so the depth of the wavefront is
+    ``max + 1``.  Raises ValueError where the kernel sets its error word: a
+    block off the 4-sample grid, two blocks owning one unit, or a block
+    reading a unit that a later block writes."""
+    m = np.asarray(meta).reshape(-1, NF)
+    max_log2 = 5 if (c_idx == 0 or c444) else 4
+    UW = -(-W // 4)
+    owner = np.zeros((-(-H // 4), UW), np.int64)      # 1 + row
+    level = np.full(len(m), -1, np.int64)
+    rows = np.nonzero(m[:, 7] != 0)[0]
+    for b in rows:
+        x, y = int(m[b, 0]), int(m[b, 1])
+        if x < 0 or y < 0 or x % 4 or y % 4:
+            raise ValueError(f"intra_schedule: row {b}: {ERRORS[8]}")
+        n = 1 << min(max(int(m[b, 2]), 2), max_log2)
+        units = owner[y // 4:-(-min(y + n, H) // 4),
+                      x // 4:-(-min(x + n, W) // 4)]
+        if units.any():
+            raise ValueError(f"intra_schedule: row {b}: {ERRORS[1]}")
+        units[...] = b + 1
+    for b in rows:
+        x, y, flags = int(m[b, 0]), int(m[b, 1]), int(m[b, 6])
+        n = 1 << min(max(int(m[b, 2]), 2), max_log2)
+        yt, xl = max(y - 1, 0), max(x - 1, 0)
+        ys, xs = [], []
+        for bit, lo, top in ((8, 0, True), (16, n, True), (2, 0, False),
+                             (1, n, False)):
+            if flags & bit:
+                k = np.arange(lo, lo + n)
+                if top:
+                    ys.append(np.full(n, yt))
+                    xs.append(np.minimum(x + k, W - 1))
+                else:
+                    ys.append(np.minimum(y + k, H - 1))
+                    xs.append(np.full(n, xl))
+        if flags & 4:
+            ys.append(np.array([yt]))
+            xs.append(np.array([xl]))
+        if not ys:
+            level[b] = 0
+            continue
+        o = owner[np.concatenate(ys) // 4, np.concatenate(xs) // 4] - 1
+        if (o > b).any():
+            raise ValueError(f"intra_schedule: row {b}: {ERRORS[2]}")
+        deps = o[(o >= 0) & (o != b)]
+        level[b] = 1 + level[deps].max() if deps.size else 0
+    return level
 
 
 # ---------------------------------------------------------------------------
 # wrapper
 # ---------------------------------------------------------------------------
 
+# csrc/intra.cu IntraLaunch: three Planes (px, res, meta, owner, px_in
+# pointers; n_meta, H, W, c_idx), the tickets and error pointers, n_planes,
+# bd, strong, c444
+_LAUNCH = struct.Struct("@" + "5P4i" * 3 + "2P4i")
+
+
 def intra_planes(planes, resids, metas, c_idxs, bd, strong, c444):
     """Reconstruct the intra blocks of up to three planes.
 
     planes/resids: (H, W) int32 tensors; metas: (n_chunks, CHUNK, NF) int32
     tensors in decode order; c_idxs: the plane indices.  Returns new
-    planes; CPU tensors take the plain version, CUDA tensors the kernel
-    (one launch for all planes).
+    planes.  CPU tensors take the plain version (decode order, any
+    metadata); CUDA tensors the wavefront kernel (all planes in one call),
+    which raises on metadata it cannot schedule (see intra_schedule).
     """
     if not planes:
         return []
@@ -199,21 +284,26 @@ def intra_planes(planes, resids, metas, c_idxs, bd, strong, c444):
                 for p, r, m, c in zip(planes, resids, metas, c_idxs)]
     if dev.type != "cuda":
         raise ValueError(f"intra: unsupported device {dev}")
-    outs = [torch.empty_like(p) for p in planes]
-    for o, p in zip(outs, planes):
-        o.copy_(p)
-    k = len(planes)
-    pad = lambda xs, v: list(xs) + [v] * (3 - k)   # noqa: E731
-    ptr = [o.data_ptr() for o in outs]
-    cuda_lib.launch(
-        "ohk_intra",
-        *pad(ptr, None), *pad([r.data_ptr() for r in resids], None),
-        *pad([m.data_ptr() for m in metas], None),
-        *pad([m.numel() // NF for m in metas], 0),
-        *pad([o.shape[0] for o in outs], 0),
-        *pad([o.shape[1] for o in outs], 0),
-        *pad(list(c_idxs), 0),
-        k, bd, int(bool(strong)), int(bool(c444)),
-        cuda_lib.stream_ptr(dev))
+    cuda_lib.check_size("ohk_intra", _LAUNCH.size)
+    outs = [p.clone() for p in planes]
+    units = [-(-o.shape[0] // 4) * -(-o.shape[1] // 4) for o in outs]
+    # owner maps, three ticket counters, the error word
+    scratch = torch.zeros(sum(units) + 4, dtype=torch.int32, device=dev)
+    base = scratch.data_ptr()
+    fields, owner = [], 0
+    for o, p, r, m, c, u in zip(outs, planes, resids, metas, c_idxs, units):
+        fields += [o.data_ptr(), r.data_ptr(), m.data_ptr(),
+                   base + 4 * owner, p.data_ptr(), m.numel() // NF,
+                   o.shape[0], o.shape[1], c]
+        owner += u
+    fields += [0] * 9 * (3 - len(planes))
+    q = _LAUNCH.pack(*fields, base + 4 * owner, base + 4 * (owner + 3),
+                     len(planes), bd, int(bool(strong)), int(bool(c444)))
+    cuda_lib.launch("ohk_intra", q, cuda_lib.stream_ptr(dev))
     device.count("intra")
+    err = int(scratch[-1])          # waits for the launch
+    if err:
+        raise RuntimeError("intra: metadata the wavefront cannot schedule: "
+                           + "; ".join(v for k, v in ERRORS.items()
+                                       if err & k))
     return outs

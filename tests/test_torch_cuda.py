@@ -22,10 +22,12 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+@pytest.mark.parametrize("kernel", ["k1", "k1_rejects", "k2", "k3", "k4"])
 def test_kernel_matches_plain_on_card(kernel):
     """K1-K4 on seeded inputs at small shapes, tolerance 0 (the checks of
-    chip_smoke.py's kernel phase)."""
+    chip_smoke.py's kernel phase): K1 on quadtrees in valid decode order,
+    and its forward-dependency and overlap cases, which must raise; K3 on
+    a mixed pass of every tile shape, int32 and int16."""
     _need_card()
     rng = np.random.default_rng(chip_smoke.SEED)
     check = getattr(chip_smoke, f"check_{kernel}")
@@ -47,11 +49,12 @@ CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,cfg,pattern", CASES, ids=[c[0] for c in CASES])
 def test_port_decode_on_card(name, cfg, pattern):
-    """Whole decodes through the kernels: the encoder's reconstruction and
-    every SEI MD5 must match, and every kernel the frames need ran."""
+    """Whole decodes through the kernels, on the card by default: the
+    encoder's reconstruction and every SEI MD5 must match, every kernel
+    the frames need ran, and K3 painted at most two passes a frame."""
     _need_card()
     from openhevc_tpu_torch.decoder.frontend import Decoder
-    from openhevc_tpu_torch.torch_backend import CudaBackend, device
+    from openhevc_tpu_torch.torch_backend import device
     rng = np.random.default_rng(len(name))
     enc = Encoder(cfg)
     stream = b"".join(enc.parameter_set_nals())
@@ -64,7 +67,7 @@ def test_port_decode_on_card(name, cfg, pattern):
         stream += nal
         recons.append([np.asarray(p).copy() for p in recon])
     device.reset_launches()
-    dec = Decoder(backend=CudaBackend(), check_md5=True)
+    dec = Decoder(check_md5=True)
     frames = dec.decode_stream(stream)
     counts = device.launches()
     mine = [[np.asarray(p).astype(np.int32) for p in f.host_planes()]
@@ -73,5 +76,6 @@ def test_port_decode_on_card(name, cfg, pattern):
     assert_frames_equal(mine, recons, name)
     assert counts["intra"] > 0 and counts["paint"] > 0 and \
         counts["filter"] > 0
+    assert counts["paint"] <= 2 * len(pattern)
     if "P" in pattern or "B" in pattern:
         assert counts["mc"] > 0

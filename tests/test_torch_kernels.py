@@ -26,6 +26,7 @@ from openhevc_tpu_torch.torch_backend import filter as flt
 from openhevc_tpu_torch.torch_backend import intra, paint, residual
 from openhevc_tpu_torch.torch_backend import mc as tmc
 from openhevc_tpu_torch.torch_backend.plan_compile import TILE_SIZES
+from openhevc_tpu.encoder import EncoderConfig
 
 _QP_C = [29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37]
 
@@ -121,6 +122,130 @@ def test_k1_build_meta_matches_reference(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# K1's wavefront schedule (intra_schedule): the CUDA kernel rebuilds blocks
+# as their dependencies complete, so any order that respects the levels
+# must give the sequential result
+# ---------------------------------------------------------------------------
+
+class _PlanRecorder:
+    """Backend stand-in: records the plans, reconstructs on the CPU."""
+
+    wire_fmt = None
+
+    def __init__(self):
+        from openhevc_tpu_torch.torch_backend import CudaBackend
+        self.inner = CudaBackend(device="cpu")
+        self.plans = []
+
+    def decode_frame(self, plan, dpb):
+        self.plans.append(plan)
+        return self.inner.decode_frame(plan, dpb)
+
+
+def _encoder_metas(cfg, pattern, seed):
+    """(c_idx, H, W, meta) of every frame's intra planes in an encoder-made
+    stream, packed as CudaBackend packs them."""
+    from openhevc_tpu.encoder import Encoder
+    from openhevc_tpu_torch.decoder.frontend import Decoder
+    from openhevc_tpu_torch.torch_backend import CudaBackend
+    from tests.util_e2e import make_source
+    rng = np.random.default_rng(seed)
+    enc = Encoder(cfg)
+    stream = b"".join(enc.parameter_set_nals())
+    base = make_source(rng, cfg.width, cfg.height)
+    for i, st in enumerate(pattern):
+        src = [np.roll(np.roll(base[0], i, 0), 2 * i, 1),
+               np.roll(base[1], i, 0), np.roll(base[2], i, 0)]
+        stream += enc.encode_frame(src, st)[0]
+    rec = _PlanRecorder()
+    Decoder(backend=rec, check_md5=True).decode_stream(stream)
+    packer = CudaBackend(device="cpu")
+    out = []
+    for plan in rec.plans:
+        _plan, host, prof, _refs = packer.prepare_host(plan)
+        for (c, _bands) in prof["ipal"]:
+            sh = 1 if c else 0
+            out.append((min(c, 1), plan.height >> sh, plan.width >> sh,
+                        host[("ipal", c, 0)]))
+    return out
+
+
+def _dense_edges_ops(valid_order):
+    """The dense_edges case: 6x4 blocks of 8x8 in raster order.  As written
+    above, its bottom-left flags name blocks that come later in raster
+    order; valid_order clears them (raster order never has them)."""
+    (_name, H, W, bd, strong, c_idx, ops), = [
+        c for c in _k1_cases() if c[0] == "dense_edges"]
+    if valid_order:
+        for op in ops:
+            op.cand_bottom_left = 0
+    return H, W, bd, strong, c_idx, ops
+
+
+def _k1_level_cases():
+    yield "enc_I_128x64", lambda: _encoder_metas(
+        EncoderConfig(width=128, height=64, qp=30, log2_ctb=6,
+                      rng_seed=41), "I", 1)
+    yield "enc_IP_192x128", lambda: _encoder_metas(
+        EncoderConfig(width=192, height=128, qp=32, log2_ctb=6,
+                      p_intra_in_inter=0.5, rng_seed=43), "IP", 2)
+
+    def dense():
+        H, W, bd, strong, c_idx, ops = _dense_edges_ops(True)
+        return [(c_idx, H, W, ip.build_meta(ops, c_idx, False))]
+    yield "dense_edges_raster", dense
+
+
+@pytest.mark.parametrize("case", list(_k1_level_cases()),
+                         ids=lambda c: c[0])
+def test_k1_level_order_matches_sequential(case, monkeypatch):
+    """Each block's step (intra_block_plain_) run in intra_schedule's level
+    order, reversed inside each level, equals the sequential plain version
+    and the Pallas kernel in interpret mode."""
+    monkeypatch.setattr(ip, "CHUNK", 16)
+    name, make = case
+    planes = make()
+    assert planes, name
+    rng = np.random.default_rng(len(name))
+    for c_idx, H, W, meta in planes:
+        plane = rng.integers(0, 256, (H, W)).astype(np.int32)
+        resid = rng.integers(-30, 30, (H, W)).astype(np.int32)
+        level = intra.intra_schedule(meta, H, W, c_idx)
+        rows = meta.reshape(-1, intra.NF)
+        assert (level >= 0).sum() == (rows[:, 7] != 0).sum()
+        order = sorted(np.nonzero(level >= 0)[0],
+                       key=lambda b: (level[b], -b))
+        out = _t(plane).clone()
+        res = _t(resid).to(torch.int64)
+        for b in order:
+            intra.intra_block_plain_(out, res, rows[b].tolist(), c_idx, 8,
+                                     True, False)
+        seq = intra.intra_plane_plain(_t(plane), _t(resid), _t(meta), c_idx,
+                                      8, True, False)
+        want = np.asarray(ip.intra_seq(
+            jnp.asarray(plane), jnp.asarray(resid),
+            jnp.asarray(rows.reshape(-1, 16, intra.NF)), H, W, c_idx, 8,
+            True, False, interpret=True))
+        np.testing.assert_array_equal(out.numpy(), seq.numpy())
+        np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["forward_dense_edges", "overlap"])
+def test_k1_schedule_rejects(case):
+    """Metadata the wavefront cannot schedule: dense_edges as written
+    (bottom-left flags on later blocks), and two blocks writing one 4x4
+    unit.  The sequential plain version still gives the reference's
+    result for both; intra_schedule, like the kernel, refuses them."""
+    H, W, bd, strong, c_idx, ops = _dense_edges_ops(case == "overlap")
+    if case == "overlap":
+        ops = ops + [_mk(4, 8, 8, 10, (0, 1, 1, 1, 0))]
+    meta = ip.build_meta(ops, c_idx, False)
+    msg = "later block" if case != "overlap" else "one 4x4 unit"
+    with pytest.raises(ValueError, match=msg):
+        intra.intra_schedule(meta, H, W, c_idx)
+
+
+# ---------------------------------------------------------------------------
 # K2 MC
 # ---------------------------------------------------------------------------
 
@@ -208,8 +333,48 @@ def test_k3_paint_plain_vs_pallas(dtype):
         plane = np.asarray(band_paint(
             jnp.asarray(plane), jnp.asarray(tiles), jnp.asarray(xs),
             jnp.asarray(ys), jnp.asarray(valid), h, w, interpret=True))
-        paint.paint_(mine, _t(tiles), _t(xs), _t(ys), _t(valid))
+        paint.paint_groups_([(mine, _t(tiles), _t(xs), _t(ys), _t(valid))])
     np.testing.assert_array_equal(mine.numpy(), plane[:H, :W])
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_k3_paint_pass_plain_vs_pallas(dtype):
+    """One mixed pass (every tile shape, two planes of one dtype, as
+    frame_step paints them): paint_groups_plain_ equals each group through
+    band_paint in interpret mode, and each group through paint_plain_."""
+    rng = np.random.default_rng(2)
+    shapes = ((128, 264), (64, 132))
+    padded = [rng.integers(0, 1023, band_pad_shape(*s)).astype(dtype)
+              for s in shapes]
+    mine = [_t(p[:s[0], :s[1]].copy()) for p, s in zip(padded, shapes)]
+    single = [m.clone() for m in mine]
+    taken = [np.zeros(s, bool) for s in shapes]
+    groups = []
+    for (h, w) in TILE_SIZES:
+        for k, (H, W) in enumerate(shapes):
+            cells = [(y, x) for y in range(0, H - h + 1, h)
+                     for x in range(0, W - w + 1, w)
+                     if not taken[k][y:y + h, x:x + w].any()]
+            picks = rng.permutation(len(cells))[:3]
+            if not len(picks):
+                continue
+            ys = np.array([cells[i][0] for i in picks], np.int32)
+            xs = np.array([cells[i][1] for i in picks], np.int32)
+            for y, x in zip(ys, xs):
+                taken[k][y:y + h, x:x + w] = True
+            valid = rng.integers(0, 2, len(picks)).astype(np.int32)
+            tiles = rng.integers(0, 1023, (len(picks), h, w)).astype(dtype)
+            padded[k] = np.asarray(band_paint(
+                jnp.asarray(padded[k]), jnp.asarray(tiles), jnp.asarray(xs),
+                jnp.asarray(ys), jnp.asarray(valid), h, w, interpret=True))
+            vecs = (_t(tiles), _t(xs), _t(ys), _t(valid))
+            groups.append((mine[k],) + vecs)
+            paint.paint_plain_(single[k], *vecs)
+    assert len({g[1].shape[1:] for g in groups}) == len(TILE_SIZES)
+    paint.paint_groups_plain_(groups)
+    for m, s1, p, (H, W) in zip(mine, single, padded, shapes):
+        np.testing.assert_array_equal(m.numpy(), p[:H, :W])
+        np.testing.assert_array_equal(m.numpy(), s1.numpy())
 
 
 def test_k3_paint_drops_outside_samples():
@@ -218,7 +383,7 @@ def test_k3_paint_drops_outside_samples():
     xs = torch.tensor([6, 0], dtype=torch.int32)
     ys = torch.tensor([6, 0], dtype=torch.int32)
     valid = torch.tensor([1, 0], dtype=torch.int32)
-    paint.paint_(plane, tiles, xs, ys, valid)
+    paint.paint_groups_([(plane, tiles, xs, ys, valid)])
     want = np.zeros((8, 8), np.int32)
     want[6:, 6:] = np.arange(1, 17).reshape(4, 4)[:2, :2]
     np.testing.assert_array_equal(plane.numpy(), want)

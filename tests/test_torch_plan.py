@@ -114,7 +114,7 @@ def test_frame_arrays_match_reference_1080p_clip(monkeypatch):
     with open(CLIP, "rb") as f:
         data = chip_smoke._first_pictures(f.read(), 2)
     rec = _Recorder()
-    dec = Decoder(backend=None, check_md5=True)
+    dec = Decoder(backend="numpy", check_md5=True)
     # parse only: reconstructing 1080p on the CPU belongs to the slow tier
     dec._reconstruct = lambda plan: rec.plans.append(plan) or \
         _fake_frame(plan)
