@@ -10,16 +10,19 @@ Drives ``openhevc_tpu_torch`` only (nothing of JAX or ``openhevc_tpu``):
 3. kernels: K1-K4 against their plain PyTorch versions on the card, on
    seeded inputs at small shapes, tolerance 0 (integer pipeline): K1 on
    random quadtrees in valid decode order, plus a forward dependency and
-   an overlap that it must reject (raise, not hang); K3 on mixed passes;
+   an overlap that it must reject (raise, not hang); K2 on one pass of
+   every tile size and plane, depths 8 and 10; K3 on mixed passes; K4 on
+   three-plane frames (one not a multiple of the CTB), depths 8 and 10;
 4. decode: the committed 1080p Main clip through ``Decoder(check_md5=True)``
    (the card by default); every decoded-picture-hash SEI must match, every
-   kernel must have launched, K1 once a frame and K3 at most twice;
+   kernel must have launched, K1 and K4 once a frame, K2 at most once and
+   K3 at most twice;
 5. timing: each kernel held again against its plain version, tolerance 0,
    on the clip's own inputs (the I frame's and the first P frame's calls),
    then timed there (CUDA events) beside its plain version, its bound and,
    where one exists, a single PyTorch call that computes the same function:
    K1 on the I and the P frame with the depth of its wavefront, K3 per
-   pass; torch.profiler's device time of K1 and K3 where it has one;
+   pass; torch.profiler's device time of every kernel where it has one;
 6. the ``kernels`` JSON line, the card line, and the final status line.
 
 Any failure raises and the script exits non-zero without a status line.
@@ -221,32 +224,44 @@ def check_k1_rejects(rng, dev):
     return 0
 
 
-def k2_inputs(rng, dev, is_luma, w, h, n=96, H=96, W=128):
+def k2_pass(rng, dev, bd, n=96, H=96, W=128):
+    """One mixed pass: the six tile sizes on a luma plane and two 4:2:0
+    chroma planes, the chroma groups sharing the luma work vectors as
+    frame_step's do; a quarter of the motion vectors point far outside
+    the picture.  -> [McGroup]."""
     import torch
-    refs = rng.integers(0, 256, (3, H, W)).astype(np.int32)
-    sel = rng.integers(0, 3, n)
-    xs = rng.integers(0, W // w, n) * w
-    ys = rng.integers(0, H // h, n) * h
-    mvx = rng.integers(-64, 65, n)
-    mvy = rng.integers(-64, 65, n)
-    far = rng.random(n) < 0.25          # motion far outside the picture
-    mvx[far] = rng.integers(-4000, 4000, far.sum())
-    mvy[far] = rng.integers(-4000, 4000, far.sum())
+    from openhevc_tpu_torch.torch_backend.mc import McGroup
+    from openhevc_tpu_torch.torch_backend.plan_compile import TILE_SIZES
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa
-    return t(refs), [t(a) for a in (sel, xs, ys, mvx, mvy)]
+    refs = [t(rng.integers(0, 1 << bd, (3, h, w)))
+            for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    groups = []
+    for (w, h) in TILE_SIZES:
+        sel = rng.integers(0, 3, n)
+        xs = rng.integers(0, W // w, n) * w
+        ys = rng.integers(0, H // h, n) * h
+        mvx = rng.integers(-64, 65, n)
+        mvy = rng.integers(-64, 65, n)
+        far = rng.random(n) < 0.25          # motion far outside the picture
+        mvx[far] = rng.integers(-4000, 4000, far.sum())
+        mvy[far] = rng.integers(-4000, 4000, far.sum())
+        vecs = [t(a) for a in (sel, xs, ys, mvx, mvy)]
+        for c in range(3):
+            s_ = min(c, 1)
+            groups.append(McGroup(refs[c], *vecs, w >> s_, h >> s_, c == 0,
+                                  bd, 1, 1, s_, s_))
+    return groups
 
 
 def check_k2(rng, dev):
+    """One pass of every tile size and plane, depths 8 and 10, against
+    mc_pass_plain."""
     from openhevc_tpu_torch.torch_backend import mc as mcm
-    from openhevc_tpu_torch.torch_backend.plan_compile import TILE_SIZES
     err = 0
-    for (w, h) in TILE_SIZES:
-        for is_luma in (True, False):
-            ww, hh = (w, h) if is_luma else (w // 2, h // 2)
-            refs, vecs = k2_inputs(rng, dev, is_luma, ww, hh)
-            got = mcm.mc(refs, *vecs, ww, hh, is_luma, 8)
-            ref = mcm.mc_plain(refs, *vecs, ww, hh, is_luma, 8)
-            err = max(err, int((got - ref).abs().max()))
+    for bd in (8, 10):
+        groups = k2_pass(rng, dev, bd)
+        err = max(err, _max_diff(mcm.mc_pass(groups),
+                                 mcm.mc_pass_plain(groups)))
     return err
 
 
@@ -302,49 +317,64 @@ def check_k3(rng, dev):
     return err
 
 
-def k4_inputs(rng, dev, H=384, W=512, ctb=64):
-    """Luma (H, W) and 4:2:0 chroma (H/2, W/2) planes with grids built from
-    random deblocking maps, plus random SAO grids and restore masks."""
+def k4_frame(rng, dev, H, W, bd, ctb=64):
+    """A 4:2:0 frame of (H, W) luma: three planes, their deblocking grids
+    built from random maps over the grids' padded geometry (so edges past
+    the picture carry nonzero tc), random SAO grids and restore masks."""
     import torch
     from openhevc_tpu_torch.torch_backend import filter as flt
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa
-    vbs = t(rng.integers(0, 3, (H // 4, W // 8)))
-    hbs = t(rng.integers(0, 3, (H // 8, W // 4)))
-    qp = t(rng.integers(15, 48, (H // 8, W // 8)))
-    nfm = t(rng.random((H // 4, W // 4)) < 0.05)
+    Hp, Wp = H + (-H % 16), W + (-W % 16)
+    vbs = t(rng.integers(0, 3, (Hp // 4, Wp // 8)))
+    hbs = t(rng.integers(0, 3, (Hp // 8, Wp // 4)))
+    qp = t(rng.integers(15, 48, (Hp // 8, Wp // 8)))
+    nfm = t(rng.random((Hp // 4, Wp // 4)) < 0.05)
     qpc = t([29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37])
-    grid = (-(-H // ctb), -(-W // ctb))
-    cases = []
-    for c in range(2):
+    planes, grids, sao, restores = [], [], [], []
+    for c in range(3):
         h, w = (H, W) if c == 0 else (H // 2, W // 2)
-        base = rng.integers(60, 190, (h // 8 + 1, w // 8 + 1)).repeat(
-            8, 0).repeat(8, 1)[:h, :w]
-        plane = t(base + rng.integers(-3, 4, (h, w)))
+        cs = ctb >> min(c, 1)
+        hi = 1 << bd
+        base = rng.integers(hi // 4, 3 * hi // 4, (h // 8 + 1, w // 8 + 1))
+        base = base.repeat(8, 0).repeat(8, 1)[:h, :w]
+        planes.append(t(base + rng.integers(-3, 4, (h, w))))
         if c == 0:
-            vg, hg = flt.build_luma_grids(vbs, hbs, qp, 2, -2, nfm, 8, H, W)
+            grids.append(flt.build_luma_grids(vbs, hbs, qp, 2, -2, nfm, bd,
+                                              Hp, Wp))
         else:
-            vg, hg = flt.build_chroma_grids(vbs, hbs, qp, 1, 0, 0, nfm, qpc,
-                                            8, h, w, 2, 2, True)
+            grids.append(flt.build_chroma_grids(
+                vbs, hbs, qp, c, 0, 0, nfm, qpc, bd, Hp // 2, Wp // 2, 2, 2,
+                True))
+        grid = (-(-h // cs), -(-w // cs))
         om = rng.integers(-7, 8, grid + (5,))
         om[..., 0] = 0
-        sg = (t(rng.integers(0, 3, grid)), t(rng.integers(0, 32, grid)),
-              t(rng.integers(0, 4, grid)), t(om))
-        rs = t(rng.random((h, w)) < 0.02)
-        cases.append((c, plane, vg, hg, sg, rs, ctb >> min(c, 1)))
-    return cases
+        sao.append((t(rng.integers(0, 3, grid)), t(rng.integers(0, 32, grid)),
+                    t(rng.integers(0, 4, grid)), t(om)))
+        restores.append(t(rng.random((h, w)) < 0.02) if c != 1 else None)
+    return planes, grids, sao, restores
 
 
 def check_k4(rng, dev):
+    """Three-plane calls of filter_planes against filter_planes_plain: a
+    frame whose sizes are multiples of the CTB, one whose sizes are not
+    (200x264 luma, CTB 64), deblock-only, SAO-only, restore masks, bit
+    depths 8 and 10; and the one-plane entry filter_plane."""
     from openhevc_tpu_torch.torch_backend import filter as flt
     err = 0
-    for (c, plane, vg, hg, sg, rs, cs) in k4_inputs(rng, dev):
-        for db, sao, restore in ((True, True, rs), (True, False, None),
-                                 (False, True, None)):
-            kw = dict(luma=(c == 0), bd=8, deblock_on=db, sao_on=sao,
-                      csx=cs, csy=cs)
-            got = flt.filter_plane(plane, vg, hg, sg, restore, **kw)
-            ref = flt.filter_plane_plain(plane, vg, hg, sg, restore, **kw)
-            err = max(err, int((got - ref).abs().max()))
+    for (H, W, bd) in ((384, 512, 8), (200, 264, 8), (200, 264, 10)):
+        planes, grids, sao, rs = k4_frame(rng, dev, H, W, bd)
+        for db, so in ((True, True), (True, False), (False, True)):
+            args = (planes, grids if db else None, sao if so else None,
+                    rs if so else None)
+            kw = dict(bd=bd, deblock_on=db, sao_on=so, ctb=64, hs=1, vs=1)
+            err = max(err, _max_diff(flt.filter_planes(*args, **kw),
+                                     flt.filter_planes_plain(*args, **kw)))
+        kw = dict(luma=True, bd=bd, deblock_on=True, sao_on=True, csx=64,
+                  csy=64)
+        err = max(err, _max_diff(
+            [flt.filter_plane(planes[0], *grids[0], sao[0], rs[0], **kw)],
+            [flt.filter_plane_plain(planes[0], *grids[0], sao[0], rs[0],
+                                    **kw)]))
     return err
 
 
@@ -430,9 +460,9 @@ class Recorder:
         from openhevc_tpu_torch.torch_backend import frame_step as fs
         self.fs = fs
         self.calls = {k: [] for k in ("intra", "mc", "paint", "filter")}
-        self.orig = {k: getattr(fs, n) for k, n in (
-            ("intra", "intra_planes"), ("mc", "mc"),
-            ("paint", "paint_groups_"), ("filter", "filter_plane"))}
+        self.names = {"intra": "intra_planes", "mc": "mc_pass",
+                      "paint": "paint_groups_", "filter": "filter_planes"}
+        self.orig = {k: getattr(fs, n) for k, n in self.names.items()}
 
     def __enter__(self):
         def wrap(kind, fn):
@@ -443,19 +473,13 @@ class Recorder:
                 self.calls[kind].append((args, dict(kw)))
                 return fn(*a, **kw)
             return rec
-        fs = self.fs
-        fs.intra_planes = wrap("intra", self.orig["intra"])
-        fs.mc = wrap("mc", self.orig["mc"])
-        fs.paint_groups_ = wrap("paint", self.orig["paint"])
-        fs.filter_plane = wrap("filter", self.orig["filter"])
+        for k, n in self.names.items():
+            setattr(self.fs, n, wrap(k, self.orig[k]))
         return self
 
     def __exit__(self, *exc):
-        fs = self.fs
-        fs.intra_planes = self.orig["intra"]
-        fs.mc = self.orig["mc"]
-        fs.paint_groups_ = self.orig["paint"]
-        fs.filter_plane = self.orig["filter"]
+        for k, n in self.names.items():
+            setattr(self.fs, n, self.orig[k])
 
 
 def _max_diff(got, ref):
@@ -486,8 +510,8 @@ def check_clip_calls(calls):
             errs["intra"] = max(errs["intra"], _max_diff(
                 intra.intra_planes(*a, **kw), ref))
     for (a, kw) in calls["mc"]:
-        errs["mc"] = max(errs["mc"], _max_diff([mcm.mc(*a, **kw)],
-                                               [mcm.mc_plain(*a, **kw)]))
+        errs["mc"] = max(errs["mc"], _max_diff(mcm.mc_pass(*a, **kw),
+                                               mcm.mc_pass_plain(*a, **kw)))
     for (a, kw) in calls["paint"]:
         got, gp = _clone_pass(a[0])
         ref, rp = _clone_pass(a[0])
@@ -496,7 +520,7 @@ def check_clip_calls(calls):
         errs["paint"] = max(errs["paint"], _max_diff(gp, rp))
     for (a, kw) in calls["filter"]:
         errs["filter"] = max(errs["filter"], _max_diff(
-            [flt.filter_plane(*a, **kw)], [flt.filter_plane_plain(*a, **kw)]))
+            flt.filter_planes(*a, **kw), flt.filter_planes_plain(*a, **kw)))
     return errs
 
 
@@ -600,44 +624,44 @@ def time_kernels(data):
                                                 "library_ms", "bytes")},
         ops=0, passes=passes)
 
-    # K2: every MC call of the P frame
-    calls = p_calls["mc"]
+    # K2: the P frame's pass (every tile size and plane)
+    (call,) = p_calls["mc"]
+    groups = call[0][0]
     byts = ops = 0
-    for (a, kw) in calls:
-        refs, sel, xs, ys, mvx, mvy, w, h, is_luma = a[:9]
-        taps = 8 if is_luma else 4
-        n = xs.numel()
-        win = n * (h + taps - 1) * (w + taps - 1) * 4
-        byts += min(win, refs.numel() * 4) + 5 * n * 4 + n * h * w * 4
-        ops += n * 2 * taps * ((h + taps - 1) * w + h * w)
+    for g in groups:
+        taps = 8 if g.is_luma else 4
+        n = g.xs.numel()
+        win = n * (g.h + taps - 1) * (g.w + taps - 1) * 4
+        byts += min(win, g.refs.numel() * 4) + 5 * n * 4 + n * g.h * g.w * 4
+        ops += n * 2 * taps * ((g.h + taps - 1) * g.w + g.h * g.w)
     out["mc"] = dict(
-        ms=cuda_ms(lambda: [mcm.mc(*a, **kw) for (a, kw) in calls]),
-        plain_ms=cuda_ms(lambda: [mcm.mc_plain(*a, **kw)
-                                  for (a, kw) in calls], reps=3),
-        bytes=byts, ops=ops, library_ms=None)
+        ms=cuda_ms(lambda: mcm.mc_pass(groups)),
+        plain_ms=cuda_ms(lambda: mcm.mc_pass_plain(groups), reps=3),
+        bytes=byts, ops=ops, library_ms=None, groups=len(groups))
 
-    # K4: the three planes of the P frame
-    calls = p_calls["filter"]
+    # K4: the P frame's call (three planes)
+    (call,) = p_calls["filter"]
+    a, kw = call
+    planes, grids, sao, restores = a
     byts = 0
-    for (a, kw) in calls:
-        plane = a[0]
+    for c, plane in enumerate(planes):
         byts += 2 * plane.numel() * 4
-        for g in list(a[1] or ()) + list(a[2] or ()) + list(a[3] or ()):
-            byts += g.numel() * 4
-        if a[4] is not None:
-            byts += a[4].numel() * 4
-    samples = sum(a[0].numel() for (a, kw) in calls)
+        tensors = list(grids[c][0]) + list(grids[c][1]) if grids else []
+        tensors += list(sao[c]) if sao else []
+        if restores and restores[c] is not None:
+            tensors.append(restores[c])
+        byts += sum(g.numel() * 4 for g in tensors)
+    samples = sum(p.numel() for p in planes)
     out["filter"] = dict(
-        ms=cuda_ms(lambda: [flt.filter_plane(*a, **kw) for (a, kw) in calls]),
-        plain_ms=cuda_ms(lambda: [flt.filter_plane_plain(*a, **kw)
-                                  for (a, kw) in calls], reps=3),
+        ms=cuda_ms(lambda: flt.filter_planes(*a, **kw)),
+        plain_ms=cuda_ms(lambda: flt.filter_planes_plain(*a, **kw), reps=3),
         bytes=byts, ops=30 * samples, library_ms=None)
     torch.cuda.synchronize()
     return out, errs
 
 
 def profile_frames(data):
-    """Device time of K1 and K3 from torch.profiler: the decode of the I
+    """Device time of K1-K4 from torch.profiler: the decode of the I
     frame alone, and of the I and first P frames (the P frame is the
     difference).  Each decode is checked like the main path's; only the
     profiler's own calls may fail softly.  -> ({kernel: {"i_frame": ms,
@@ -647,7 +671,9 @@ def profile_frames(data):
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = {"intra": ("owner_kernel", "wavefront_kernel"),
-             "paint": ("paint_pass_kernel",)}
+             "mc": ("mc_pass_kernel",),
+             "paint": ("paint_pass_kernel",),
+             "filter": ("filter_frame_kernel",)}
     tot = []
     for n in (1, 2):
         try:
@@ -780,9 +806,10 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    # K1: one launch a frame; K3: one pass of residuals a frame, one of MC
-    # predictions a P frame
-    if counts["intra"] != FRAMES or counts["paint"] > 2 * FRAMES - 1:
+    # K1 and K4: one launch a frame; K2: one a P frame; K3: one pass of
+    # residuals a frame, one of MC predictions a P frame
+    if (counts["intra"] != FRAMES or counts["filter"] != FRAMES
+            or counts["mc"] > FRAMES - 1 or counts["paint"] > 2 * FRAMES - 1):
         raise AssertionError(f"launch counts off: {counts}")
     phase("decode", t)
 
@@ -797,7 +824,7 @@ def main():
                              f"clip's inputs: {bad}")
     prof, why = profile_frames(data)
     if prof is None:
-        print(f"profile intra, paint device_ms not measured (profiler "
+        print(f"profile device_ms not measured (profiler "
               f"failed: {why})", flush=True)
         prof = {}
     for key, frames_ms in prof.items():

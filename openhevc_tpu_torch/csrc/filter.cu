@@ -1,32 +1,75 @@
-// K4: deblocking (vertical then horizontal edges) and SAO of one plane.
+// K4: deblocking (vertical then horizontal edges) and SAO of a frame's
+// planes, in one launch: one thread block per CTB of each plane.
 //
 // Replaces the Pallas kernel openhevc_tpu/tpu/filter_pallas.py:290
-// (_kernel, launched at :556 by fused_filter_plane).  Three launches per
-// plane:
-//   1. ohk_deblock(vertical=1): one thread per (edge, 4-line group),
-//      in place;
-//   2. ohk_deblock(vertical=0): the same over the horizontal edges of the
-//      vertical pass's output, in place;
-//   3. ohk_sao: one thread per sample, band or edge offset with the
-//      picture-border exclusions, then the PCM/bypass restore mask; it
-//      reads the deblocked plane and writes a separate output, so no
-//      sample reads an already-offset neighbour.
-// In-place deblocking is exact: an edge at 8k reads samples 8k-4..8k+3
-// and writes 8k-3..8k+2, so no edge reads what another edge of the same
-// pass writes.  Luma decisions use lines 0 and 3 of each group
-// (hevcdsp_template.c, filter_pallas.py:215 _luma_edge).
+// (_kernel, launched at :556 by fused_filter_plane).  Per plane, in this
+// order: the vertical 8-px edges of the plane zero-padded to the grids'
+// geometry, the horizontal edges of that result, SAO (band/edge offsets
+// with the picture-border exclusions) on the deblocked samples, and the
+// PCM/bypass restore mask.
 //
-// What bounds it here: bytes.  Each pass reads and writes the plane once
-// (about 30 integer operations per sample at most).  The TPU kernel's
-// "filter every lane, then select" form and its row bands with halos were
-// there to avoid transposes and fit VMEM; per-edge threads need neither.
+// What bounds it here: bytes.  The function reads each sample once and
+// writes it once (about 30 integer operations a sample at most).  The
+// design keeps every intermediate on the chip: a block copies its CTB
+// plus a halo of 4 samples on every side (72x72 int32 for a 64x64 luma
+// CTB) into shared memory with one TMA load, runs the vertical pass, the
+// horizontal pass and SAO there, and writes only its own CTB, once, to a
+// separate output plane.  So the plane crosses device memory once each
+// way, plus the halo's re-read (27% for a luma CTB, mostly from L2).
+//
+// Why a halo of 4 is exact: an edge at 8k reads samples 8k-4..8k+3 and
+// writes 8k-3..8k+2.  SAO needs the deblocked samples at +-1 around the
+// CTB; the horizontal edges at y0..y0+S reach them and read rows
+// y0-4..y0+S+3 over the 4-column groups that cover x0-4..x0+S+3; the
+// vertical edges at x0..x0+S that produce those columns read
+// x0-4..x0+S+3, and their decisions (lines 0 and 3 of each 4-line group)
+// stay inside the 4-aligned rows y0-4..y0+S+3.  Halo edges are computed
+// by the blocks on both sides, identically; no block writes another's
+// tile.  The tensor map spans the plane's true (H, W), and TMA fills
+// everything outside it with zeros: exactly the reference's zero-padded
+// geometry.  Deblocking in place inside the tile is exact because no edge
+// reads what another edge of the same pass writes.
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kHalo = 4;
+constexpr int kMaxCtb = 64;
+constexpr int kMaxTile = kMaxCtb + 2 * kHalo;
+constexpr int kMaxPlanes = 3;
+
+struct FilterPlane {
+  CUtensorMap map;          // over src (H, W), box (csy+8, csx+8); filled
+                            // by the launcher
+  const int* src;           // (H, W) input plane
+  int* dst;                 // (H, W) output plane
+  const int* vg[4];         // vertical-edge grids tc, beta (chroma: tc
+                            // again), nop, noq:
+                            // (vrows, vcols); row g+2 = 4-line group g,
+                            // column k = edge at x = 8k
+  const int* hg[4];         // horizontal-edge grids (hrows, hcols): row
+                            // k = edge at y = 8k, column g = group g
+  const int* sao[4];        // type, band, class (rows, gcols); offsets
+                            // (rows, gcols, 5)
+  const int* restore;       // (H, W) or null
+  int H, W;
+  int vrows, vcols, hrows, hcols;
+  int csx, csy, log2csx;    // CTB (tile) shape
+  int cols;                 // CTBs a row: ceil(W / csx)
+  int gcols;                // the SAO grids' row length
+  int first_cta;
+  int luma;
+};
+
+struct FilterFrame {
+  FilterPlane p[kMaxPlanes];
+  int n_planes, n_ctas, bd, deblock, sao;
+};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -34,43 +77,31 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 __device__ __forceinline__ int absi(int v) { return v < 0 ? -v : v; }
 __device__ __forceinline__ int signi(int v) { return (v > 0) - (v < 0); }
 
-// px: plane; edge k (1-based) of group g.  `along` steps across the edge
-// (taps), `line` steps along it (the 4 lines of a group).
-__global__ void __launch_bounds__(kThreads)
-deblock_kernel(int* __restrict__ px, int W, const int* __restrict__ tcg,
-               const int* __restrict__ betag, const int* __restrict__ nopg,
-               const int* __restrict__ noqg, int G, int K, int ld, int luma,
-               int vertical, int bd) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= G * K) return;
-  const int g = idx / K, k = idx - g * K;
-  const int tc = tcg[g * ld + k];
-  if (tc <= 0) return;
-  const int nop = nopg[g * ld + k], noq = noqg[g * ld + k];
-  const int maxv = (1 << bd) - 1;
-  const int e = 8 * (k + 1);
-  const size_t along = vertical ? 1 : (size_t)W;
-  const size_t line = vertical ? (size_t)W : 1;
-  int* base = vertical ? px + (size_t)(4 * g) * W + e
-                       : px + (size_t)e * W + 4 * g;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One edge of 4 lines.  q points at sample q0 of line 0; `along` steps
+// across the edge (taps), `line` along it.
+__device__ void deblock_edge(int* q, int along, int line, int tc, int beta,
+                             int nop, int noq, bool luma, int maxv) {
   if (!luma) {
     for (int l = 0; l < 4; ++l) {
-      int* q = base + l * line;
-      const int p1 = q[-2 * (long)along], p0 = q[-(long)along];
-      const int q0 = q[0], q1 = q[along];
+      int* s = q + l * line;
+      const int p1 = s[-2 * along], p0 = s[-along];
+      const int q0 = s[0], q1 = s[along];
       const int delta = clampi((((q0 - p0) * 4) + p1 - q1 + 4) >> 3, -tc, tc);
-      if (nop == 0) q[-(long)along] = clampi(p0 + delta, 0, maxv);
-      if (noq == 0) q[0] = clampi(q0 - delta, 0, maxv);
+      if (nop == 0) s[-along] = clampi(p0 + delta, 0, maxv);
+      if (noq == 0) s[0] = clampi(q0 - delta, 0, maxv);
     }
     return;
   }
-  const int beta = betag[g * ld + k];
   int P[4][4], Q[4][4];   // [line][i]: P[l][i] = p_i, Q[l][i] = q_i
   for (int l = 0; l < 4; ++l) {
-    const int* q = base + l * line;
+    const int* s = q + l * line;
     for (int i = 0; i < 4; ++i) {
-      P[l][i] = q[-(long)(i + 1) * (long)along];
-      Q[l][i] = q[(long)i * along];
+      P[l][i] = s[-(i + 1) * along];
+      Q[l][i] = s[i * along];
     }
   }
   const int dp0 = absi(P[0][2] - 2 * P[0][1] + P[0][0]);
@@ -90,23 +121,23 @@ deblock_kernel(int* __restrict__ px, int W, const int* __restrict__ tcg,
   const bool nd_q = (dq0 + dq3) < ((beta + (beta >> 1)) >> 3);
   const int tc2 = tc << 1, tch = tc >> 1;
   for (int l = 0; l < 4; ++l) {
-    int* q = base + l * line;
+    int* s = q + l * line;
     const int p0 = P[l][0], p1 = P[l][1], p2 = P[l][2], p3 = P[l][3];
     const int q0 = Q[l][0], q1 = Q[l][1], q2 = Q[l][2], q3 = Q[l][3];
     if (strong) {
       if (nop == 0) {
-        q[-(long)along] = p0 + clampi(((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 +
-                                        4) >> 3) - p0, -tc2, tc2);
-        q[-2 * (long)along] =
+        s[-along] = p0 + clampi(((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >>
+                                 3) - p0, -tc2, tc2);
+        s[-2 * along] =
             p1 + clampi(((p2 + p1 + p0 + q0 + 2) >> 2) - p1, -tc2, tc2);
-        q[-3 * (long)along] = p2 + clampi(((2 * p3 + 3 * p2 + p1 + p0 + q0 +
-                                            4) >> 3) - p2, -tc2, tc2);
+        s[-3 * along] = p2 + clampi(((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >>
+                                     3) - p2, -tc2, tc2);
       }
       if (noq == 0) {
-        q[0] = q0 + clampi(((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3) -
+        s[0] = q0 + clampi(((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3) -
                            q0, -tc2, tc2);
-        q[along] = q1 + clampi(((p0 + q0 + q1 + q2 + 2) >> 2) - q1, -tc2, tc2);
-        q[2 * along] = q2 + clampi(((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >>
+        s[along] = q1 + clampi(((p0 + q0 + q1 + q2 + 2) >> 2) - q1, -tc2, tc2);
+        s[2 * along] = q2 + clampi(((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >>
                                     3) - q2, -tc2, tc2);
       }
     } else {
@@ -114,16 +145,16 @@ deblock_kernel(int* __restrict__ px, int W, const int* __restrict__ tcg,
       if (absi(delta0) < 10 * tc) {
         const int d = clampi(delta0, -tc, tc);
         if (nop == 0) {
-          q[-(long)along] = clampi(p0 + d, 0, maxv);
+          s[-along] = clampi(p0 + d, 0, maxv);
           if (nd_p)
-            q[-2 * (long)along] = clampi(
+            s[-2 * along] = clampi(
                 p1 + clampi((((p2 + p0 + 1) >> 1) - p1 + d) >> 1, -tch, tch),
                 0, maxv);
         }
         if (noq == 0) {
-          q[0] = clampi(q0 - d, 0, maxv);
+          s[0] = clampi(q0 - d, 0, maxv);
           if (nd_q)
-            q[along] = clampi(
+            s[along] = clampi(
                 q1 + clampi((((q2 + q0 + 1) >> 1) - q1 - d) >> 1, -tch, tch),
                 0, maxv);
         }
@@ -132,67 +163,185 @@ deblock_kernel(int* __restrict__ px, int W, const int* __restrict__ tcg,
   }
 }
 
+// One deblocking pass over the tile (TH, TW), origin (y0-4, x0-4) in the
+// plane.  Edges at tile offset 4 + 8j across, j = 0..S/8; 4-line groups
+// along.  Grid lookups follow the builders' layout; an edge outside the
+// grids is not filtered, as in the plain version.
+__device__ void deblock_pass(int* tile, int TW, const FilterPlane& P, int bx,
+                             int by, bool vertical, int maxv) {
+  const int S = vertical ? P.csx : P.csy;          // across the edges
+  const int L = (vertical ? P.csy : P.csx) + 2 * kHalo;   // along them
+  const int n_e = (S >> 3) + 1, n_g = L >> 2;
+  const int k0 = vertical ? (bx * P.csx) >> 3 : (by * P.csy) >> 3;
+  const int g0 = ((vertical ? by * P.csy : bx * P.csx) >> 2) - 1;
+  const int* const* grid = vertical ? P.vg : P.hg;
+  const int along = vertical ? 1 : TW, line = vertical ? TW : 1;
+  for (int it = threadIdx.x; it < n_e * n_g; it += kThreads) {
+    const int gi = it / n_e, j = it - gi * n_e;
+    const int k = k0 + j, g = g0 + gi;
+    int idx;
+    if (vertical) {
+      if (k < 1 || k >= P.vcols || g < 0 || g >= P.vrows - 4) continue;
+      idx = (g + 2) * P.vcols + k;
+    } else {
+      if (k < 1 || k >= P.hrows || g < 0 || g >= P.hcols) continue;
+      idx = k * P.hcols + g;
+    }
+    const int tc = __ldg(grid[0] + idx);
+    if (tc <= 0) continue;
+    const int beta = P.luma ? __ldg(grid[1] + idx) : 0;
+    const int nop = __ldg(grid[2] + idx), noq = __ldg(grid[3] + idx);
+    int* q = vertical ? tile + (4 * gi) * TW + kHalo + 8 * j
+                      : tile + (kHalo + 8 * j) * TW + 4 * gi;
+    deblock_edge(q, along, line, tc, beta, nop, noq, P.luma != 0, maxv);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-sao_kernel(const int* __restrict__ src, int* __restrict__ dst, int H, int W,
-           const int* __restrict__ tm, const int* __restrict__ bm,
-           const int* __restrict__ em, const int* __restrict__ om, int gw,
-           int csx, int csy, const int* __restrict__ restore, int bd) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= H * W) return;
-  const int y = idx / W, x = idx - y * W;
-  const int v = src[idx];
-  const int cell = (y / csy) * gw + (x / csx);
-  const int t = tm[cell];
-  const int* off = om + 5 * cell;
-  const int maxv = (1 << bd) - 1;
-  int out = v;
-  if (t == 1) {
-    const int band = ((v >> (bd - 5)) - bm[cell]) & 31;
-    if (band < 4) out = clampi(v + off[band + 1], 0, maxv);
-  } else if (t == 2) {
-    const int cls = em[cell];
-    if (cls >= 0 && cls <= 3) {
-      const int dx = cls == 0 ? -1 : (cls == 1 ? 0 : (cls == 2 ? -1 : 1));
-      const int dy = cls == 0 ? 0 : -1;
-      const bool bx = (x == 0 || x == W - 1) && cls != 1;
-      const bool by = (y == 0 || y == H - 1) && cls != 0;
-      if (!bx && !by) {
-        const int n0 = src[(y + dy) * W + (x + dx)];
-        const int n1 = src[(y - dy) * W + (x - dx)];
+filter_frame_kernel(const __grid_constant__ FilterFrame f) {
+  __shared__ __align__(128) int tile[kMaxTile * kMaxTile];
+  __shared__ __align__(8) uint64_t bar;
+  int pi = 0;
+  while (pi + 1 < f.n_planes && (int)blockIdx.x >= f.p[pi + 1].first_cta)
+    ++pi;
+  const FilterPlane& P = f.p[pi];
+  const int t = blockIdx.x - P.first_cta;
+  const int by = t / P.cols, bx = t - by * P.cols;
+  const int x0 = bx * P.csx, y0 = by * P.csy;
+  const int TW = P.csx + 2 * kHalo, TH = P.csy + 2 * kHalo;
+
+  // the tile and its halo: one TMA load, zeros outside the plane
+  const uint32_t b = smem_addr(&bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+        :: "r"(b), "r"(TW * TH * 4) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(smem_addr(tile)),
+           "l"(reinterpret_cast<uint64_t>(&P.map)),
+           "r"(x0 - kHalo), "r"(y0 - kHalo), "r"(b)
+        : "memory");
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(b) : "memory");
+  }
+
+  const int maxv = (1 << f.bd) - 1;
+  if (f.deblock) {
+    deblock_pass(tile, TW, P, bx, by, true, maxv);
+    __syncthreads();
+    deblock_pass(tile, TW, P, bx, by, false, maxv);
+    __syncthreads();
+  }
+
+  // SAO on the deblocked tile, the restore mask, one write of the CTB
+  int type = 0, band = 0, cls = 0, off[5] = {0, 0, 0, 0, 0};
+  if (f.sao) {
+    const int cell = by * P.gcols + bx;
+    type = __ldg(P.sao[0] + cell);
+    band = __ldg(P.sao[1] + cell);
+    cls = __ldg(P.sao[2] + cell);
+    for (int i = 0; i < 5; ++i) off[i] = __ldg(P.sao[3] + 5 * cell + i);
+  }
+  const int dx = cls == 0 ? -1 : (cls == 1 ? 0 : (cls == 2 ? -1 : 1));
+  const int dy = cls == 0 ? 0 : -1;
+  const int n = P.csx * P.csy;
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int r = k >> P.log2csx, c = k & (P.csx - 1);
+    const int y = y0 + r, x = x0 + c;
+    if (y >= P.H || x >= P.W) continue;
+    const int* s = tile + (r + kHalo) * TW + (c + kHalo);
+    const int v = s[0];
+    int out = v;
+    if (type == 1) {
+      const int bi = ((v >> (f.bd - 5)) - band) & 31;
+      if (bi < 4) out = clampi(v + off[bi + 1], 0, maxv);
+    } else if (type == 2 && cls >= 0 && cls <= 3) {
+      const bool bxe = (x == 0 || x == P.W - 1) && cls != 1;
+      const bool bye = (y == 0 || y == P.H - 1) && cls != 0;
+      if (!bxe && !bye) {
+        const int n0 = s[dy * TW + dx], n1 = s[-dy * TW - dx];
         const int s2 = signi(v - n0) + signi(v - n1);
         const int o = s2 == -2 ? off[1] : s2 == -1 ? off[2]
                     : s2 == 1 ? off[3] : s2 == 2 ? off[4] : 0;
         out = clampi(v + o, 0, maxv);
       }
     }
+    const size_t at = (size_t)y * P.W + x;
+    if (f.sao && P.restore != nullptr && __ldg(P.restore + at) != 0) out = v;
+    P.dst[at] = out;
   }
-  if (restore != nullptr && restore[idx] != 0) out = v;
-  dst[idx] = out;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace
 
-extern "C" int ohk_deblock(void* px, int H, int W, void* tc, void* beta,
-                           void* nop, void* noq, int G, int K, int ld,
-                           int luma, int vertical, int bd, void* stream) {
-  (void)H;
-  if (G <= 0 || K <= 0) return 0;
-  const int n = G * K;
-  deblock_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                   (cudaStream_t)stream>>>(
-      (int*)px, W, (const int*)tc, (const int*)beta, (const int*)nop,
-      (const int*)noq, G, K, ld, luma, vertical, bd);
-  return (int)cudaGetLastError();
-}
+extern "C" int ohk_filter_frame_size() { return (int)sizeof(FilterFrame); }
 
-extern "C" int ohk_sao(void* src, void* dst, int H, int W, void* tm, void* bm,
-                       void* em, void* om, int gw, int csx, int csy,
-                       void* restore, int bd, void* stream) {
-  const int n = H * W;
-  if (n <= 0) return 0;
-  sao_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-               (cudaStream_t)stream>>>(
-      (const int*)src, (int*)dst, H, W, (const int*)tm, (const int*)bm,
-      (const int*)em, (const int*)om, gw, csx, csy, (const int*)restore, bd);
+// frame: a host FilterFrame with its tensor maps left blank; the launcher
+// encodes one map a plane and copies the whole struct into the launch's
+// parameters.  Returns a CUDA error, or -1 when the driver has no
+// cuTensorMapEncodeTiled, or -(1000 + CUresult) when encoding failed.
+extern "C" int ohk_filter_frame(const void* frame, void* stream) {
+  FilterFrame f;
+  memcpy(&f, frame, sizeof f);
+  if (f.n_planes < 1 || f.n_planes > kMaxPlanes || f.n_ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  for (int i = 0; i < f.n_planes; ++i) {
+    FilterPlane& P = f.p[i];
+    if (P.csx > kMaxCtb || P.csy > kMaxCtb || (P.W * 4) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const cuuint64_t dims[2] = {(cuuint64_t)P.W, (cuuint64_t)P.H};
+    const cuuint64_t strides[1] = {(cuuint64_t)P.W * 4};
+    const cuuint32_t box[2] = {(cuuint32_t)(P.csx + 2 * kHalo),
+                               (cuuint32_t)(P.csy + 2 * kHalo)};
+    const cuuint32_t estr[2] = {1, 1};
+    const CUresult r = encode(
+        &P.map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, (void*)P.src, dims, strides,
+        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -(1000 + (int)r);
+  }
+  filter_frame_kernel<<<f.n_ctas, kThreads, 0, (cudaStream_t)stream>>>(f);
   return (int)cudaGetLastError();
 }

@@ -36,17 +36,15 @@ SIGNATURES = {
     # launch (host struct, copied into the launches), stream
     "ohk_intra": [_P, _P],
     "ohk_intra_size": [],
-    # refs, R, H, W, sel, xs, ys, mvx, mvy, N, w, h, is_luma, hs, vs, bd,
-    # out, stream
-    "ohk_mc": [_P, _I, _I, _I] + [_P] * 5 + [_I] * 7 + [_P, _P],
+    # pass (host struct, copied into the launch), shared bytes, stream
+    "ohk_mc_pass": [_P, _I, _P],
+    "ohk_mc_pass_size": [],
     # pass (host struct, copied into the launch), element bytes, stream
     "ohk_paint_pass": [_P, _I, _P],
     "ohk_paint_pass_size": [],
-    # plane, H, W, tc, beta, nop, noq, G, K, ld, luma, vertical, bd, stream
-    "ohk_deblock": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                    _P],
-    # src, dst, H, W, tm, bm, em, om, gw, csx, csy, restore, bd, stream
-    "ohk_sao": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # frame (host struct; the launcher encodes its tensor maps), stream
+    "ohk_filter_frame": [_P, _P],
+    "ohk_filter_frame_size": [],
 }
 
 _lib = None

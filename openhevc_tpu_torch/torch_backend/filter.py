@@ -1,14 +1,19 @@
-"""K4: deblocking + SAO of one plane (csrc/filter.cu), its plain version,
-and the per-edge / per-CTB parameter grids.
+"""K4: deblocking + SAO of a frame's planes (csrc/filter.cu), its plain
+version, and the per-edge / per-CTB parameter grids.
 
-Counterpart of ``openhevc_tpu/tpu/filter_pallas.py``: the vertical edges
-filter first, then the horizontal edges of that output, then SAO on the
-deblocked samples with the picture-border exclusions, then the PCM/bypass
-restore mask.  The grid builders keep the reference's padded layout
-exactly (V grids: ((Hp+16)/4, Wp/8) with two zero group-rows above and
-column k = edge at x = 8k; H grids: (Hp/8 + 1, Wp/4) with row k = edge at
-y = 8k), so the tests hold them against the reference array for array.
+Counterpart of ``openhevc_tpu/tpu/filter_pallas.py``: per plane, the
+vertical edges filter first, then the horizontal edges of that output,
+then SAO on the deblocked samples with the picture-border exclusions,
+then the PCM/bypass restore mask.  On the card, ``filter_planes`` runs all
+three planes of a frame in one launch, one thread block a CTB, and the
+kernel reads the grids in the layout the builders return.  The grid
+builders keep the reference's padded layout exactly (V grids:
+((Hp+16)/4, Wp/8) with two zero group-rows above and column k = edge at
+x = 8k; H grids: (Hp/8, Wp/4) with row k = edge at y = 8k), so the tests
+hold them against the reference array for array.
 """
+
+import struct
 
 import numpy as np
 import torch
@@ -327,8 +332,8 @@ def _filter_plain(plane, deblock, sao, restore, luma, bd, csx, csy):
 
 def filter_plane_plain(plane, vgrids, hgrids, sao_grids, restore, *, luma,
                        bd, deblock_on, sao_on, csx, csy):
-    """Plain version of filter_plane on any device (the wrapper takes it
-    for CPU tensors only)."""
+    """Plain version of one plane of the kernel, on any device (the
+    wrappers take it for CPU tensors only)."""
     deblock = _edge_params(vgrids, hgrids, luma) if deblock_on else None
     sao = (tuple(g.to(torch.int32) for g in sao_grids) if sao_on else None)
     if restore is not None:
@@ -336,55 +341,181 @@ def filter_plane_plain(plane, vgrids, hgrids, sao_grids, restore, *, luma,
     return _filter_plain(plane, deblock, sao, restore, luma, bd, csx, csy)
 
 
-def filter_plane(plane, vgrids, hgrids, sao_grids, restore, *, luma, bd,
-                 deblock_on, sao_on, csx, csy):
-    """plane (H, W) int32 -> deblocked + SAO plane (H, W) int32 (new tensor).
+def _plane_jobs(planes, grids, sao_grids, restores, ctb, hs, vs):
+    """filter_planes' arguments -> one (plane, vgrids, hgrids, sao grids,
+    restore, luma, csx, csy) job a plane; plane 0 is luma."""
+    n = len(planes)
+    grids = grids if grids is not None else [(None, None)] * n
+    sao_grids = sao_grids if sao_grids is not None else [None] * n
+    restores = restores if restores is not None else [None] * n
+    if not (len(grids) == len(sao_grids) == len(restores) == n):
+        raise ValueError("filter: one entry a plane in every list")
+    return [(p, g[0], g[1], s, r, c == 0, ctb >> (hs if c else 0),
+             ctb >> (vs if c else 0))
+            for c, (p, g, s, r) in enumerate(zip(planes, grids, sao_grids,
+                                                  restores))]
 
-    vgrids/hgrids: build_{luma,chroma}_grids output (None without deblock);
-    sao_grids: (tm, bm, em, om) per-CTB grids, om (rows, cols, 5); restore:
-    optional (H, W) mask of samples that keep their deblocked value.
-    """
-    dev = plane.device
-    if plane.dim() != 2 or plane.dtype != torch.int32:
-        raise ValueError("filter: (H, W) int32 plane expected")
+
+def _plain_jobs(jobs, *, bd, deblock_on, sao_on):
+    return [filter_plane_plain(p, vg, hg, sg, rs, luma=luma, bd=bd,
+                               deblock_on=deblock_on, sao_on=sao_on,
+                               csx=csx, csy=csy)
+            for (p, vg, hg, sg, rs, luma, csx, csy) in jobs]
+
+
+def filter_planes_plain(planes, grids, sao_grids, restores, *, bd,
+                        deblock_on, sao_on, ctb, hs, vs):
+    """Plain version of filter_planes: each plane through
+    filter_plane_plain."""
+    return _plain_jobs(
+        _plane_jobs(planes, grids, sao_grids, restores, ctb, hs, vs),
+        bd=bd, deblock_on=deblock_on, sao_on=sao_on)
+
+
+# csrc/filter.cu FilterPlane: a 128-byte CUtensorMap (left blank; the
+# launcher encodes it), src, dst, 4 + 4 grid, 4 SAO and the restore
+# pointers; H, W, vrows, vcols, hrows, hcols, csx, csy, log2csx, cols,
+# gcols, first_cta, luma; padding to its 64-byte alignment
+_PLANE = struct.Struct("@128x15P13i20x")
+MAX_PLANES = 3
+# FilterFrame: MAX_PLANES planes, n_planes, n_ctas, bd, deblock, sao
+_FRAME_SIZE = 1024
+MAX_CTB = 64
+
+
+def _check_grid(g, shape, dev, what):
+    if (g.dtype != torch.int32 or g.device != dev or not g.is_contiguous()
+            or (shape is not None and tuple(g.shape) != shape)):
+        raise ValueError(f"filter: {what} must be contiguous int32 "
+                         f"{shape if shape else ''} on the planes' device")
+
+
+def _check_jobs(jobs, deblock_on, sao_on, bd):
+    """The kernel's contract, checked on every device; raises (converts
+    nothing).  -> the device."""
     if not 8 <= bd <= 14:
         raise ValueError("filter: unsupported bit depth")
-    H, W = plane.shape
-    deblock = _edge_params(vgrids, hgrids, luma) if deblock_on else None
-    if sao_on:
-        tm, bm, em, om = (g.to(torch.int32).contiguous() for g in sao_grids)
-        if om.shape != tm.shape + (5,) or tm.device != dev:
-            raise ValueError("filter: SAO grids must be (rows, cols[, 5]) "
-                             "on the plane's device")
-        if restore is not None:
-            restore = restore.to(torch.int32).contiguous()
-            if restore.shape != plane.shape:
-                raise ValueError("filter: restore mask must match the plane")
+    if not 1 <= len(jobs) <= MAX_PLANES:
+        raise ValueError(f"filter: 1 to {MAX_PLANES} planes")
+    dev = jobs[0][0].device
+    for (plane, vg, hg, sg, rs, luma, csx, csy) in jobs:
+        if plane.dim() != 2:
+            raise ValueError("filter: (H, W) planes expected")
+        _check_grid(plane, None, dev, "planes")
+        H, W = plane.shape
+        if not (8 <= csx <= MAX_CTB and 8 <= csy <= MAX_CTB
+                and csx & (csx - 1) == 0 and csy % 8 == 0):
+            raise ValueError("filter: CTB of 8 to 64 samples expected")
+        if deblock_on:
+            n = 4 if luma else 3
+            if len(vg) != n or len(hg) != n:
+                raise ValueError(f"filter: {n} vertical and {n} horizontal "
+                                 f"grids expected")
+            for g in vg:
+                _check_grid(g, tuple(vg[0].shape), dev, "vertical grids")
+            for g in hg:
+                _check_grid(g, tuple(hg[0].shape), dev, "horizontal grids")
+            if vg[0].dim() != 2 or hg[0].dim() != 2 or vg[0].shape[0] < 4:
+                raise ValueError("filter: grids in the builders' layout "
+                                 "expected")
+        if sao_on:
+            tm = sg[0]
+            rows, cols = -(-H // csy), -(-W // csx)
+            if tm.dim() != 2 or tm.shape[0] < rows or tm.shape[1] < cols:
+                raise ValueError("filter: SAO grids must cover the CTBs")
+            for g in sg[:3]:
+                _check_grid(g, tuple(tm.shape), dev, "SAO grids")
+            _check_grid(sg[3], tuple(tm.shape) + (5,), dev, "SAO offsets")
+            if rs is not None:
+                _check_grid(rs, (H, W), dev, "the restore mask")
+    return dev
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def pack_frame(jobs, outs, *, bd, deblock_on, sao_on):
+    """The kernel's FilterFrame for these planes and output planes (tensor
+    maps blank).  -> (bytes, number of thread blocks: one a CTB)."""
+    desc = bytearray(_FRAME_SIZE)
+    cta = 0
+    for k, ((plane, vg, hg, sg, rs, luma, csx, csy), out) in enumerate(
+            zip(jobs, outs)):
+        H, W = plane.shape
+        cols = -(-W // csx)
+        if deblock_on:                     # chroma: tc in the beta slot
+            vgp, hgp = ([g.data_ptr() for g in (gs if luma else
+                                                  (gs[0],) + tuple(gs))]
+                        for gs in (vg, hg))
+        else:
+            vgp = hgp = [0] * 4
+        vshape = tuple(vg[0].shape) if deblock_on else (0, 0)
+        hshape = tuple(hg[0].shape) if deblock_on else (0, 0)
+        sp = [_ptr(g) for g in sg] if sao_on else [0] * 4
+        _PLANE.pack_into(
+            desc, k * _PLANE.size, plane.data_ptr(), out.data_ptr(),
+            *vgp, *hgp, *sp, _ptr(rs) if sao_on else 0, H, W, *vshape,
+            *hshape, csx, csy, csx.bit_length() - 1, cols,
+            sg[0].shape[1] if sao_on else 0, cta, int(bool(luma)))
+        cta += -(-H // csy) * cols
+    struct.pack_into("@5i", desc, MAX_PLANES * _PLANE.size, len(jobs), cta,
+                     bd, int(bool(deblock_on)), int(bool(sao_on)))
+    return bytes(desc), cta
+
+
+def _filter_jobs(jobs, *, bd, deblock_on, sao_on):
+    dev = _check_jobs(jobs, deblock_on, sao_on, bd)
     if dev.type == "cpu":
-        return _filter_plain(plane, deblock, (tm, bm, em, om) if sao_on
-                             else None, restore, luma, bd, csx, csy)
+        return _plain_jobs(jobs, bd=bd, deblock_on=deblock_on, sao_on=sao_on)
     if dev.type != "cuda":
         raise ValueError(f"filter: unsupported device {dev}")
-    stream = cuda_lib.stream_ptr(dev)
-    out = plane
-    if deblock is not None:
-        geom, passes = deblock
-        buf = _padded(plane, geom).contiguous()
-        PH, PW = buf.shape
-        for vertical, G, K, ps in passes:
-            cuda_lib.launch("ohk_deblock", buf.data_ptr(), PH, PW,
-                            *[p.data_ptr() for p in ps], G, K, K,
-                            int(bool(luma)), int(vertical), bd, stream)
-        out = buf[:H, :W].contiguous()
-    if sao_on:
-        src = out.contiguous()
-        out = torch.empty_like(plane)
-        cuda_lib.launch("ohk_sao", src.data_ptr(), out.data_ptr(), H, W,
-                        tm.data_ptr(), bm.data_ptr(), em.data_ptr(),
-                        om.data_ptr(), tm.shape[1], csx, csy,
-                        restore.data_ptr() if restore is not None else None,
-                        bd, stream)
-    if deblock is None and not sao_on:
-        return plane.clone()
+    if not (deblock_on or sao_on):
+        return [j[0].clone() for j in jobs]
+    for j in jobs:
+        if j[0].shape[1] % 4 or j[0].data_ptr() % 16:
+            raise ValueError("filter: the kernel's tensor map needs rows of "
+                             "a multiple of 16 bytes, 16-byte aligned")
+    cuda_lib.check_size("ohk_filter_frame", _FRAME_SIZE)
+    outs = [torch.empty_like(j[0]) for j in jobs]
+    desc, _ = pack_frame(jobs, outs, bd=bd, deblock_on=deblock_on,
+                         sao_on=sao_on)
+    cuda_lib.launch("ohk_filter_frame", desc, cuda_lib.stream_ptr(dev))
     device.count("filter")
-    return out
+    return outs
+
+
+def filter_planes(planes, grids, sao_grids, restores, *, bd, deblock_on,
+                  sao_on, ctb, hs, vs):
+    """A frame's planes (luma first) -> deblocked + SAO planes (new
+    tensors), in one kernel launch on the card.
+
+    planes: (H, W) int32; grids: a (vgrids, hgrids) pair a plane from
+    build_{luma,chroma}_grids (None without deblocking); sao_grids: a
+    (tm, bm, em, om) tuple a plane, (rows, cols) and (rows, cols, 5)
+    int32 (None without SAO); restores: an (H, W) int32 mask a plane or
+    None, samples that keep their deblocked value (None for none).  CTBs
+    are ctb x ctb luma samples, chroma subsampled by (hs, vs).  Every
+    tensor must already be contiguous int32 on the planes' device: this
+    raises, it does not convert.
+    """
+    jobs = _plane_jobs(planes, grids, sao_grids, restores, ctb, hs, vs)
+    return _filter_jobs(jobs, bd=bd, deblock_on=deblock_on, sao_on=sao_on)
+
+
+def filter_plane(plane, vgrids, hgrids, sao_grids, restore, *, luma, bd,
+                 deblock_on, sao_on, csx, csy):
+    """One plane through the same kernel as filter_planes: (H, W) int32 ->
+    deblocked + SAO plane (new tensor).  The SAO grids and the restore
+    mask are widened to int32 here when they are not."""
+    if plane.dim() != 2 or plane.dtype != torch.int32:
+        raise ValueError("filter: (H, W) int32 plane expected")
+    if sao_on:
+        sao_grids = tuple(g.to(torch.int32).contiguous() for g in sao_grids)
+        if restore is not None:
+            restore = restore.to(torch.int32).contiguous()
+    else:
+        restore = None
+    return _filter_jobs([(plane, vgrids, hgrids, sao_grids, restore, luma,
+                          csx, csy)], bd=bd, deblock_on=deblock_on,
+                        sao_on=sao_on)[0]

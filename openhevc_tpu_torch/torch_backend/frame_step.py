@@ -1,19 +1,19 @@
 """One frame's reconstruction on the device, through the four kernels.
 
 Port of ``openhevc_tpu/tpu/frame_step.py::frame_step`` for the main path
-(8-bit 4:2:0, unweighted prediction, flat dequant): MC through K2 and the
-unweighted uni/bi combine, painted by one K3 pass; the residual escapes,
-X1 dequant+IDCT and the residual canvas painted by a second K3 pass;
-intra through K1;
-deblocking + SAO through K4; the raw 8-bit output wire.  Everything else
+(8-bit 4:2:0, unweighted prediction, flat dequant): MC through one K2 pass
+and the unweighted uni/bi combine, painted by one K3 pass; the residual
+escapes, X1 dequant+IDCT and the residual canvas painted by a second K3
+pass; intra through K1; deblocking + SAO of all three planes through one
+K4 launch; the raw 8-bit output wire.  Everything else
 the reference handles raises NotImplementedError (see ROADMAP.md).
 """
 
 import torch
 
-from .filter import build_chroma_grids, build_luma_grids, filter_plane
+from .filter import build_chroma_grids, build_luma_grids, filter_planes
 from .intra import intra_planes
-from .mc import mc
+from .mc import McGroup, mc_pass
 from .paint import paint_groups_
 from .residual import residual_batch
 
@@ -56,30 +56,35 @@ def frame_step(refs, arrays, prof):
     shapes = [(H, W), (H >> vs, W >> hs), (H >> vs, W >> hs)]
     planes = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
 
-    # ---- motion compensation: K2 over the compacted work batch, the
-    # unweighted put_hevc_qpel_{uni,bi} combine, one K3 pass ----
+    # ---- motion compensation: one K2 pass over the compacted work batches
+    # of every tile size and plane, the unweighted put_hevc_qpel_{uni,bi}
+    # combine, one K3 pass ----
     off_u = 1 << (14 - bd - 1)
     off_b = 1 << (15 - bd - 1)
-    mc_pass = []
-    for (w, h) in prof["inter_sizes"]:
-        b = {f: arrays[("inter", w, h, f)]
-             for f in ("xs", "ys", "pf", "valid", "i0", "i1", "wxs", "wys",
-                       "wsel", "wmvx", "wmvy")}
-        pf = b["pf"][:, None, None]
+    batches = [{f: arrays[("inter", w, h, f)]
+                for f in ("xs", "ys", "pf", "valid", "i0", "i1", "wxs", "wys",
+                          "wsel", "wmvx", "wmvy")}
+               for (w, h) in prof["inter_sizes"]]
+    groups, uses = [], []
+    for (w, h), b in zip(prof["inter_sizes"], batches):
         for c in range(3):
             sh_, sv_ = (hs, vs) if c else (0, 0)
-            wc, hc = w >> sh_, h >> sv_
-            out = mc(refs[c], b["wsel"], b["wxs"] >> sh_, b["wys"] >> sv_,
-                     b["wmvx"], b["wmvy"], wc, hc, c == 0, bd, hs, vs)
-            val0 = out[b["i0"].long()]
-            val1 = out[b["i1"].long()]
-            uni = torch.clamp((torch.where(pf == 1, val0, val1) + off_u)
-                              >> (14 - bd), 0, maxv)
-            bi = torch.clamp((val0 + val1 + off_b) >> (15 - bd), 0, maxv)
-            vals = torch.where(pf == 3, bi, uni).to(torch.int32)
-            mc_pass.append((planes[c], vals, b["xs"] >> sh_, b["ys"] >> sv_,
-                            b["valid"]))
-    paint_groups_(mc_pass)
+            groups.append(McGroup(refs[c], b["wsel"], b["wxs"], b["wys"],
+                                  b["wmvx"], b["wmvy"], w >> sh_, h >> sv_,
+                                  c == 0, bd, hs, vs, sh_, sv_))
+            uses.append((b, c, sh_, sv_))
+    mc_groups = []
+    for (b, c, sh_, sv_), out in zip(uses, mc_pass(groups)):
+        pf = b["pf"][:, None, None]
+        val0 = out[b["i0"].long()]
+        val1 = out[b["i1"].long()]
+        uni = torch.clamp((torch.where(pf == 1, val0, val1) + off_u)
+                          >> (14 - bd), 0, maxv)
+        bi = torch.clamp((val0 + val1 + off_b) >> (15 - bd), 0, maxv)
+        vals = torch.where(pf == 3, bi, uni).to(torch.int32)
+        mc_groups.append((planes[c], vals, b["xs"] >> sh_, b["ys"] >> sv_,
+                          b["valid"]))
+    paint_groups_(mc_groups)
 
     # ---- residual canvas: whole-frame dequant+IDCT per (plane, size),
     # int16-clipped and painted by one K3 pass ----
@@ -110,36 +115,29 @@ def frame_step(refs, arrays, prof):
         for c, p in zip(cs, got):
             planes[c] = p
 
-    # ---- deblocking + SAO: K4 per plane ----
+    # ---- deblocking + SAO: K4, all planes in one launch ----
     deblock_on, sao_on = prof["deblock_on"], prof["sao_on"]
     if deblock_on or sao_on:
         Hp, Wp = H + (-H % 16), W + (-W % 16)
-        ctb = 1 << (prof["log2_ctb"] or 6)
+        grids = sao = restores = None
         if deblock_on:
             vbs, hbs = arrays[("map", "vbs")], arrays[("map", "hbs")]
             qp_map, nfm = arrays[("map", "qp")], arrays[("map", "nfm")]
             qpc = torch.tensor(QP_C, dtype=torch.int32, device=dev)
-        for c in range(3):
-            if deblock_on and c == 0:
-                vg, hg = build_luma_grids(vbs, hbs, qp_map, prof["beta_off"],
-                                          prof["tc_off"], nfm, bd, Hp, Wp)
-            elif deblock_on:
-                off = prof["cb_off"] if c == 1 else prof["cr_off"]
-                vg, hg = build_chroma_grids(
+            grids = [build_luma_grids(vbs, hbs, qp_map, prof["beta_off"],
+                                      prof["tc_off"], nfm, bd, Hp, Wp)]
+            for off in (prof["cb_off"], prof["cr_off"]):
+                grids.append(build_chroma_grids(
                     vbs, hbs, qp_map, off, prof["tc_off"], prof["tc_off"],
                     nfm, qpc, bd, Hp >> vs, Wp >> hs, 1 << hs, 1 << vs,
-                    four20=True)
-            else:
-                vg = hg = None
-            sg = rs = None
-            if sao_on:
-                sg = tuple(arrays[("sao", c, f)]
-                           for f in ("tm", "bm", "em", "om"))
-                rs = arrays.get(("sao", c, "restore"))
-            planes[c] = filter_plane(
-                planes[c], vg, hg, sg, rs, luma=(c == 0), bd=bd,
-                deblock_on=deblock_on, sao_on=sao_on,
-                csx=ctb >> (hs if c else 0), csy=ctb >> (vs if c else 0))
+                    four20=True))
+        if sao_on:
+            sao = [tuple(arrays[("sao", c, f)]
+                         for f in ("tm", "bm", "em", "om")) for c in range(3)]
+            restores = [arrays.get(("sao", c, "restore")) for c in range(3)]
+        planes = filter_planes(planes, grids, sao, restores, bd=bd,
+                               deblock_on=deblock_on, sao_on=sao_on,
+                               ctb=1 << (prof["log2_ctb"] or 6), hs=hs, vs=vs)
 
     wire = torch.cat([p.to(torch.uint8).reshape(-1) for p in planes])
     return tuple(planes) + (wire,)

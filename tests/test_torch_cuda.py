@@ -26,8 +26,11 @@ def _need_card():
 def test_kernel_matches_plain_on_card(kernel):
     """K1-K4 on seeded inputs at small shapes, tolerance 0 (the checks of
     chip_smoke.py's kernel phase): K1 on quadtrees in valid decode order,
-    and its forward-dependency and overlap cases, which must raise; K3 on
-    a mixed pass of every tile shape, int32 and int16."""
+    and its forward-dependency and overlap cases, which must raise; K2 on
+    one pass of every tile size and plane, depths 8 and 10; K3 on a mixed
+    pass of every tile shape, int32 and int16; K4 on three-plane frames,
+    sizes that are not multiples of the CTB among them, depths 8 and
+    10."""
     _need_card()
     rng = np.random.default_rng(chip_smoke.SEED)
     check = getattr(chip_smoke, f"check_{kernel}")
@@ -51,7 +54,9 @@ CASES = [
 def test_port_decode_on_card(name, cfg, pattern):
     """Whole decodes through the kernels, on the card by default: the
     encoder's reconstruction and every SEI MD5 must match, every kernel
-    the frames need ran, and K3 painted at most two passes a frame."""
+    the frames need ran, K3 painted at most two passes a frame, K2 ran
+    at most once a frame that predicts from references, and K4 exactly
+    once a frame."""
     _need_card()
     from openhevc_tpu_torch.decoder.frontend import Decoder
     from openhevc_tpu_torch.torch_backend import device
@@ -77,5 +82,8 @@ def test_port_decode_on_card(name, cfg, pattern):
     assert counts["intra"] > 0 and counts["paint"] > 0 and \
         counts["filter"] > 0
     assert counts["paint"] <= 2 * len(pattern)
-    if "P" in pattern or "B" in pattern:
+    assert counts["filter"] == len(pattern)
+    inter = sum(st in "PB" for st in pattern)
+    assert counts["mc"] <= inter
+    if inter:
         assert counts["mc"] > 0

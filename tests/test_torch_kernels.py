@@ -8,6 +8,8 @@ path or scalar model.  The CUDA kernels themselves run only on a card
 integer.
 """
 
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -310,6 +312,80 @@ def test_k2_mc_plain_vs_pallas(is_luma):
                                           err_msg=f"{w}x{h} far={far}")
 
 
+def _mc_mixed_pass(rng, far, bd=8, n=7, H=72, W=96, R=2):
+    """One frame's pass: every tile size on the luma plane and both 4:2:0
+    chroma planes, the chroma groups sharing the luma work vectors
+    (shifted on the device), as frame_step builds it."""
+    refs = [rng.integers(0, 1 << bd, (R, h, w)).astype(np.int32)
+            for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    groups = []
+    for (w, h) in TILE_SIZES:
+        _, sel, xs, ys, mvx, mvy = _mc_inputs(rng, w, h, True, far, n=n,
+                                              H=H, W=W, R=R)
+        vecs = [_t(a) for a in (sel, xs, ys, mvx, mvy)]
+        for c in range(3):
+            s_ = 1 if c else 0
+            groups.append(tmc.McGroup(_t(refs[c]), *vecs, w >> s_, h >> s_,
+                                      c == 0, bd, 1, 1, s_, s_))
+    return refs, groups
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("far", [False, True])
+def test_k2_mc_pass_plain_vs_xla(far, bd):
+    """mc_pass_plain over a mixed pass (18 groups) equals each group
+    through mc_plain and through the XLA mc_batch."""
+    rng = np.random.default_rng(31 + far + bd)
+    refs, groups = _mc_mixed_pass(rng, far, bd)
+    got = tmc.mc_pass(groups)
+    assert len(got) == len(groups) == 3 * len(TILE_SIZES)
+    for g, out, c in zip(groups, got, [0, 1, 2] * len(TILE_SIZES)):
+        xs, ys = g.xs >> g.sx, g.ys >> g.sy
+        single = tmc.mc_plain(g.refs, g.sel, xs, ys, g.mvx, g.mvy, g.w, g.h,
+                              g.is_luma, bd)
+        want = np.asarray(mc_batch(
+            jnp.asarray(refs[c]), *[jnp.asarray(a.numpy()) for a in (
+                g.sel, xs, ys, g.mvx, g.mvy)], g.w, g.h, g.is_luma, bd))
+        np.testing.assert_array_equal(out.numpy(), single.numpy())
+        np.testing.assert_array_equal(out.numpy(), want,
+                                      err_msg=f"{g.w}x{g.h} plane {c}")
+
+
+def test_k2_pass_descriptor_covers_every_item_once():
+    """pack_pass's bytes, read back as the kernel reads them: a thread
+    block finds its group by the prefix sums and takes items
+    [b * ipc, min((b + 1) * ipc, N)); over the pass every item of every
+    group is taken exactly once, and each block's shared memory fits."""
+    rng = np.random.default_rng(33)
+    _, groups = _mc_mixed_pass(rng, False, n=300)
+    outs = [torch.empty((g.xs.shape[0], g.h, g.w), dtype=torch.int32)
+            for g in groups]
+    desc, n_ctas, smem = tmc.pack_pass(groups, outs)
+    assert smem <= tmc.SMEM_MAX
+    fields = [tmc._GROUP.unpack_from(desc, k * tmc._GROUP.size)
+              for k in range(len(groups))]
+    n_groups, n = struct.unpack_from("@2i", desc,
+                                     tmc.MAX_GROUPS * tmc._GROUP.size)
+    assert (n_groups, n) == (len(groups), n_ctas)
+    taken = [np.zeros(g.xs.shape[0], int) for g in groups]
+    for b in range(n_ctas):
+        gi = 0
+        while gi + 1 < n_groups and b >= fields[gi + 1][-1]:
+            gi += 1
+        f = fields[gi]
+        N, ipc, first = f[10], f[-2], f[-1]
+        item0 = (b - first) * ipc
+        assert 0 <= item0 < N
+        taken[gi][item0:min(item0 + ipc, N)] += 1
+    for g, out, f, t in zip(groups, outs, fields, taken):
+        assert (t == 1).all()
+        assert f[6] == out.data_ptr()
+        assert (1 << f[11], 1 << f[12], f[13]) == (g.w, g.h,
+                                                   8 if g.is_luma else 4)
+        ipc = f[-2]
+        assert ipc * g.w * g.h <= max(tmc.OUT_PER_CTA, g.w * g.h)
+
+
 # ---------------------------------------------------------------------------
 # K3 paint
 # ---------------------------------------------------------------------------
@@ -480,6 +556,240 @@ def test_k4_chroma_plain_vs_pallas():
         _t(plane), mvg, mhg, tuple(_t(g) for g in (tm, bm, em, om)), None,
         luma=False, bd=8, deblock_on=True, sao_on=True, csx=csx, csy=csy)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- K4's decomposition, emulated in torch: one CTB tile and its halo ----
+
+_KHALO = 4          # csrc/filter.cu kHalo
+
+
+def _tile_params(grids, luma, vertical, first_g, k0, n_g, n_e):
+    """The (n_g + 1, n_e) edge parameters of one tile pass in the plain
+    pass's layout: group row 0 is the pad group in front of the tile, row
+    i >= 1 is plane group first_g + i - 1; column j is grid edge k0 + j.
+    Edges outside the grids get tc = 0 (not filtered), as in the kernel."""
+    g = first_g - 1 + torch.arange(n_g + 1)[:, None]
+    k = k0 + torch.arange(n_e)[None, :]
+    t = grids[0]
+    if vertical:
+        ok = (g >= first_g) & (g >= 0) & (g < t.shape[0] - 4) & \
+            (k >= 1) & (k < t.shape[1])
+        idx = lambda a: a[(g + 2).clamp(0, t.shape[0] - 1),  # noqa: E731
+                          k.clamp(0, t.shape[1] - 1)]
+    else:
+        ok = (g >= first_g) & (g >= 0) & (g < t.shape[1]) & \
+            (k >= 1) & (k < t.shape[0])
+        idx = lambda a: a[k.clamp(0, t.shape[0] - 1),  # noqa: E731
+                          g.clamp(0, t.shape[1] - 1)]
+    ps = list(grids) if luma else [grids[0], grids[0], grids[1], grids[2]]
+    return tuple(torch.where(ok, idx(a), 0) for a in ps)
+
+
+def filter_tiled_plain(plane, vg, hg, sg, restore, *, luma, bd, deblock_on,
+                       sao_on, csx, csy, halo=_KHALO):
+    """The kernel's decomposition on the CPU: for each CTB, cut the tile
+    and a halo of 4 from the zero-padded plane (samples outside a smaller
+    `halo` zeroed, as a kernel that loaded less would see them), run the
+    vertical then the horizontal deblocking pass and SAO on the tile
+    alone, and keep the CTB."""
+    H, W = plane.shape
+    P = _KHALO
+    padded = torch.nn.functional.pad(plane, (P, P + csx, P, P + csy))
+    out = torch.empty_like(plane)
+    for y0 in range(0, H, csy):
+        for x0 in range(0, W, csx):
+            tile = padded[y0:y0 + csy + 2 * P, x0:x0 + csx + 2 * P].clone()
+            if halo < P:
+                ring = torch.ones_like(tile, dtype=torch.bool)
+                ring[P - halo:P + csy + halo, P - halo:P + csx + halo] = False
+                tile[ring] = 0
+            if deblock_on:
+                # a pad group in front, so the tile's edges fall at 8(j+1)
+                T = torch.nn.functional.pad(tile, (4, 0, 4, 0))
+                n_v, n_h = csy // 4 + 2, csx // 4 + 2
+                flt._deblock_pass_plain(
+                    T, n_v + 1, csx // 8 + 1,
+                    _tile_params(vg, luma, True, y0 // 4 - 1, x0 // 8, n_v,
+                                 csx // 8 + 1), luma, True, bd)
+                flt._deblock_pass_plain(
+                    T, n_h + 1, csy // 8 + 1,
+                    _tile_params(hg, luma, False, x0 // 4 - 1, y0 // 8, n_h,
+                                 csy // 8 + 1), luma, False, bd)
+                tile = T[4:, 4:]
+            ya, xa = max(y0 - P, 0), max(x0 - P, 0)
+            yb, xb = min(y0 + csy + P, H), min(x0 + csx + P, W)
+            sub = tile[ya - y0 + P:yb - y0 + P, xa - x0 + P:xb - x0 + P]
+            if sao_on:
+                cell = tuple(g[y0 // csy:y0 // csy + 1,
+                               x0 // csx:x0 // csx + 1] for g in sg)
+                rs = None if restore is None else restore[ya:yb, xa:xb]
+                sub = flt._sao_plain(sub, *cell, sub.shape[1], sub.shape[0],
+                                     rs, bd)
+            out[y0:y0 + csy, x0:x0 + csx] = \
+                sub[y0 - ya:y0 - ya + csy, x0 - xa:x0 - xa + csx]
+    return out
+
+
+def _k4_case(rng, H, W, ctb, luma):
+    """A luma (H, W) plane or the chroma plane of an (H, W) luma picture,
+    with grids from random maps over the padded geometry (so edges past
+    the picture carry nonzero tc), random SAO grids and a restore mask.
+    -> (plane, (vg, hg) torch, (vg, hg) JAX, sao grids, restore, cs)."""
+    Hp, Wp = -(-H // 16) * 16, -(-W // 16) * 16
+    vbs, hbs, qp, nfm = _rand_maps(rng, Hp, Wp)
+    if luma:
+        h, w, cs = H, W, ctb
+        jv, jh = fp.build_luma_grids(jnp.asarray(vbs), jnp.asarray(hbs),
+                                     jnp.asarray(qp), 1, -1,
+                                     jnp.asarray(nfm), 8, Hp, Wp)
+        tv, th = flt.build_luma_grids(_t(vbs), _t(hbs), _t(qp), 1, -1,
+                                      _t(nfm), 8, Hp, Wp)
+    else:
+        h, w, cs = H // 2, W // 2, ctb // 2
+        jv, jh = fp.build_chroma_grids(
+            jnp.asarray(vbs), jnp.asarray(hbs), jnp.asarray(qp), 1, 0, 0,
+            jnp.asarray(nfm), jnp.asarray(_QP_C, jnp.int32), 8, Hp // 2,
+            Wp // 2, 2, 2, True)
+        tv, th = flt.build_chroma_grids(
+            _t(vbs), _t(hbs), _t(qp), 1, 0, 0, _t(nfm),
+            torch.tensor(_QP_C, dtype=torch.int32), 8, Hp // 2, Wp // 2, 2,
+            2, True)
+    plane = _smooth_plane(rng, h, w, 256)
+    sg = _rand_sao(rng, -(-h // cs), -(-w // cs))
+    restore = (rng.random((h, w)) < 0.05).astype(np.int32)
+    return plane, (tv, th), (jv, jh), sg, restore, cs
+
+
+# (name, H, W, CTB, luma, deblock, SAO, restore): H and W of the luma
+# picture; none of the shapes is a multiple of its CTB
+_TILED = [
+    ("luma", 72, 136, 64, True, True, True, True),
+    ("luma_ctb32", 88, 104, 32, True, True, True, False),
+    ("chroma", 80, 144, 64, False, True, True, True),
+    ("luma_deblock_only", 72, 136, 64, True, True, False, False),
+    ("luma_sao_only", 72, 136, 32, True, False, True, True),
+    ("chroma_deblock_only", 80, 144, 32, False, True, False, False),
+]
+
+
+@pytest.mark.parametrize("case", _TILED, ids=[c[0] for c in _TILED])
+def test_k4_tiled_matches_plain_and_pallas(case):
+    """K4's decomposition (a CTB tile with a halo of 4, both deblocking
+    passes and SAO on the tile alone) equals the whole-plane plain
+    version and the Pallas kernel in interpret mode."""
+    name, H, W, ctb, luma, db, sao, rs = case
+    rng = np.random.default_rng(len(name) + H)
+    plane, (tv, th), (jv, jh), sg, restore, cs = _k4_case(rng, H, W, ctb,
+                                                          luma)
+    restore = restore if rs else None
+    tsg = tuple(_t(g) for g in sg)
+    trs = None if restore is None else _t(restore)
+    kw = dict(luma=luma, bd=8, deblock_on=db, sao_on=sao, csx=cs, csy=cs)
+    got = filter_tiled_plain(_t(plane), tv, th, tsg, trs, **kw)
+    plain = flt.filter_plane_plain(_t(plane), tv, th, tsg, trs, **kw)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    tm, bm, em, om = sg
+    want = np.asarray(fp.fused_filter_plane(
+        jnp.asarray(plane), jv if db else None, jh if db else None,
+        (jnp.asarray(tm), jnp.asarray(bm), jnp.asarray(em),
+         jnp.asarray(om).transpose(0, 2, 1)) if sao else None,
+        None if restore is None else jnp.asarray(restore.astype(np.int8)),
+        H=plane.shape[0], W=plane.shape[1], interpret=True, **kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k4_tiled_halo_of_3_is_seen():
+    """A halo of 3 is too small, and the emulation shows it: on a seeded
+    case it differs from the plain version (so the halo-4 test above
+    could see a kernel that loaded too little)."""
+    rng = np.random.default_rng(5)
+    plane, (tv, th), _, sg, _, cs = _k4_case(rng, 72, 136, 32, True)
+    kw = dict(luma=True, bd=8, deblock_on=True, sao_on=True, csx=cs, csy=cs)
+    tsg = tuple(_t(g) for g in sg)
+    plain = flt.filter_plane_plain(_t(plane), tv, th, tsg, None, **kw)
+    four = filter_tiled_plain(_t(plane), tv, th, tsg, None, **kw)
+    three = filter_tiled_plain(_t(plane), tv, th, tsg, None, halo=3, **kw)
+    np.testing.assert_array_equal(four.numpy(), plain.numpy())
+    assert (three != plain).any()
+
+
+def _k4_frame(rng, H, W, ctb):
+    """A frame's three planes (4:2:0) with their grids, SAO grids and
+    restore masks, as frame_step passes them to filter_planes."""
+    cases = [_k4_case(rng, H, W, ctb, c == 0) for c in range(3)]
+    planes = [_t(c[0]) for c in cases]
+    grids = [c[1] for c in cases]
+    sao = [tuple(_t(g) for g in c[3]) for c in cases]
+    restores = [_t(cases[0][4]), None, _t(cases[2][4])]
+    return planes, grids, sao, restores
+
+
+@pytest.mark.parametrize("db,sao", [(True, True), (True, False),
+                                    (False, True), (False, False)])
+def test_k4_filter_planes_matches_per_plane(db, sao):
+    """filter_planes on CPU tensors (one call for the frame) equals
+    filter_plane_plain on each plane."""
+    rng = np.random.default_rng(9)
+    planes, grids, sg, rs = _k4_frame(rng, 72, 136, 64)
+    got = flt.filter_planes(planes, grids if db else None,
+                            sg if sao else None, rs if sao else None, bd=8,
+                            deblock_on=db, sao_on=sao, ctb=64, hs=1, vs=1)
+    for c in range(3):
+        cs = 64 >> min(c, 1)
+        want = flt.filter_plane_plain(
+            planes[c], *grids[c], sg[c], rs[c] if sao else None,
+            luma=(c == 0), bd=8, deblock_on=db, sao_on=sao, csx=cs, csy=cs)
+        np.testing.assert_array_equal(got[c].numpy(), want.numpy())
+        assert got[c] is not planes[c]
+
+
+def test_k4_filter_planes_raises_on_what_the_kernel_does_not_take():
+    rng = np.random.default_rng(10)
+    planes, grids, sg, rs = _k4_frame(rng, 72, 136, 64)
+    kw = dict(bd=8, deblock_on=True, sao_on=True, ctb=64, hs=1, vs=1)
+    bad_grid = [grids[0], (tuple(g.long() for g in grids[1][0]),
+                           grids[1][1]), grids[2]]
+    bad_sao = [sg[0], sg[1][:3] + (sg[1][3][..., :4],), sg[2]]
+    for args in ((planes, bad_grid, sg, rs), (planes, grids, bad_sao, rs),
+                 ([planes[0].t()] + planes[1:], grids, sg, rs),
+                 (planes, grids, sg, [rs[0][:-1]] + rs[1:])):
+        with pytest.raises(ValueError):
+            flt.filter_planes(*args, **kw)
+
+
+def test_k4_frame_descriptor_covers_every_ctb_once():
+    """pack_frame's bytes, read back as the kernel reads them: the thread
+    blocks map one to one onto the CTBs of the three planes."""
+    rng = np.random.default_rng(11)
+    planes, grids, sg, rs = _k4_frame(rng, 200, 264, 64)
+    jobs = flt._plane_jobs(planes, grids, sg, rs, 64, 1, 1)
+    desc, n_ctas = flt.pack_frame(jobs, planes, bd=8, deblock_on=True,
+                                  sao_on=True)
+    assert len(desc) == flt._FRAME_SIZE
+    fields = [flt._PLANE.unpack_from(desc, k * flt._PLANE.size)
+              for k in range(3)]
+    n_planes, n, bd, db, sao = struct.unpack_from(
+        "@5i", desc, flt.MAX_PLANES * flt._PLANE.size)
+    assert (n_planes, n, bd, db, sao) == (3, n_ctas, 8, 1, 1)
+    seen = set()
+    for b in range(n_ctas):
+        pi = 0
+        while pi + 1 < n_planes and b >= fields[pi + 1][-2]:
+            pi += 1
+        (H, W, vrows, vcols, hrows, hcols, csx, csy, log2csx, cols, gcols,
+         first, luma) = fields[pi][15:]
+        assert (H, W) == tuple(planes[pi].shape) and 1 << log2csx == csx
+        assert (vrows, vcols) == tuple(grids[pi][0][0].shape)
+        assert (hrows, hcols) == tuple(grids[pi][1][0].shape)
+        assert gcols == sg[pi][0].shape[1] and luma == (pi == 0)
+        t = b - first
+        by, bx = divmod(t, cols)
+        assert by * csy < H and bx * csx < W
+        seen.add((pi, by, bx))
+    want = {(c, by, bx) for c in range(3)
+            for by in range(-(-planes[c].shape[0] // (64 >> min(c, 1))))
+            for bx in range(-(-planes[c].shape[1] // (64 >> min(c, 1))))}
+    assert seen == want and len(want) == n_ctas
 
 
 def test_sao_grids_match_reference():
