@@ -19,11 +19,23 @@ Drives ``openhevc_tpu_torch`` only (nothing of JAX or ``openhevc_tpu``):
    K3 at most twice;
 5. timing: each kernel held again against its plain version, tolerance 0,
    on the clip's own inputs (the I frame's and the first P frame's calls),
-   then timed there (CUDA events) beside its plain version, its bound and,
-   where one exists, a single PyTorch call that computes the same function:
+   and on those of BQMall 480p and 4K Main (the pipeline phase's other
+   shapes); then timed on the clip's (CUDA events) beside its plain
+   version, its bound and, where one exists, a single PyTorch call that
+   computes the same function:
    K1 on the I and the P frame with the depth of its wavefront, K3 per
    pass; torch.profiler's device time of every kernel where it has one;
-6. the ``kernels`` JSON line, the card line, and the final status line.
+6. pipeline: the dispatch of one P frame of the clip (plan preparation,
+   the one upload, the frame step, the start of the output copy) under
+   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+   wait; then the four 8-bit 4:2:0 bench streams (1080p Main 24 frames,
+   BQMall 480p 16, 4K Main 10, the SHVC stream's 1080p base layer 4),
+   each decoded twice in full through ``PipelinedDecoder()`` with the
+   plain versions refused: every MD5, one host-to-device copy a frame, K1
+   and K4 once a frame; the serial decode's host split beside the
+   pipelined fps; the device's idle share in a steady window of the
+   pipelined 1080p decode (torch.profiler, which must work);
+7. the ``kernels`` JSON line, the card line, and the final status line.
 
 Any failure raises and the script exits non-zero without a status line.
 """
@@ -172,13 +184,16 @@ def k1_cases(rng, H=136, W=200):
     return cases
 
 
-def _k1_run(dev, cases, metas, strong):
+def _k1_run(dev, cases, metas, strong, poc=None):
+    """K1 on the card against its plain version; K1's error check runs
+    for a frame of the given POC and raises on metadata it rejected."""
     import torch
     from openhevc_tpu_torch.torch_backend import intra
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     args = ([t(c[3]) for c in cases], [t(c[4]) for c in cases],
             [t(m.reshape(-1, 128, 8)) for m in metas], [c[0] for c in cases])
-    got = intra.intra_planes(*args, 8, strong, False)
+    got, errors = intra.intra_planes(*args, 8, strong, False)
+    errors.check(poc)
     ref = [intra.intra_plane_plain(p, r, m, c, 8, strong, False)
            for p, r, m, c in zip(*args)]
     return max(int((g.long() - r.long()).abs().max())
@@ -202,7 +217,9 @@ def check_k1(rng, dev):
 def check_k1_rejects(rng, dev):
     """Metadata the wavefront cannot schedule must raise, not hang: a flag
     on a neighbour that a later block writes, and two blocks writing one
-    unit.  intra_schedule (the plain rule) must reject both too.  -> 0."""
+    unit.  The kernel's raise comes from its error check and names the
+    frame's POC; intra_schedule (the plain rule) must reject both too.
+    -> 0."""
     from openhevc_tpu_torch.torch_backend import intra
     cases = k1_cases(rng)
     c_idx, H, W, plane, resid, blocks, flags, later = cases[0]
@@ -212,14 +229,18 @@ def check_k1_rejects(rng, dev):
     over = blocks + [blocks[len(blocks) // 2]]
     for name, meta in (("forward dependency", k1_meta(rng, blocks, fwd)),
                        ("overlap", k1_meta(rng, over, flags + [0]))):
-        for rule, run in (
+        for rule, run, text in (
                 ("intra_schedule",
-                 lambda: intra.intra_schedule(meta, H, W, c_idx)),
-                ("kernel", lambda: _k1_run(dev, cases[:1], [meta], 0))):
+                 lambda: intra.intra_schedule(meta, H, W, c_idx), ""),
+                ("kernel", lambda: _k1_run(dev, cases[:1], [meta], 0, 17),
+                 "(frame POC 17)")):
             try:
                 run()
-            except (RuntimeError, ValueError):
-                continue
+            except (RuntimeError, ValueError) as e:
+                if text in str(e):
+                    continue
+                raise AssertionError(f"K1 {rule}: {name} raised without "
+                                     f"{text!r}: {e}") from e
             raise AssertionError(f"K1 {rule}: {name} was not rejected")
     return 0
 
@@ -507,8 +528,9 @@ def check_clip_calls(calls):
         ref = [intra.intra_plane_plain(p, r, m, c, bd, strong, c444)
                for p, r, m, c in zip(planes, resids, metas, cidx)]
         for _ in range(K1_REPEATS):
-            errs["intra"] = max(errs["intra"], _max_diff(
-                intra.intra_planes(*a, **kw), ref))
+            got, errors = intra.intra_planes(*a, **kw)
+            errors.check()
+            errs["intra"] = max(errs["intra"], _max_diff(got, ref))
     for (a, kw) in calls["mc"]:
         errs["mc"] = max(errs["mc"], _max_diff(mcm.mc_pass(*a, **kw),
                                                mcm.mc_pass_plain(*a, **kw)))
@@ -660,14 +682,32 @@ def time_kernels(data):
     return out, errs
 
 
+# the other bench streams' shapes, which the main path meets only in the
+# pipeline phase: 832x480 (chroma rows 416 samples wide, a new K4 tensor-map
+# pitch) and 3840x2160 (K1's largest wavefront, K2's and K4's largest
+# grids).  The SHVC base layer is 1920x1080, the clip's own shape.
+CLIP_CHECK_STREAMS = ("bqmall_480p", "4k_main")
+
+
+def check_stream_calls(name):
+    """check_clip_calls on the recorded calls of a bench stream's I frame
+    and first P frame (both decoded through the kernels, MD5s checked).
+    -> {kernel: max abs difference}."""
+    with Recorder() as rec:
+        decode_checked(bench_stream(name), 2)
+    if not all(rec.calls[k] for k in ("intra", "mc", "paint", "filter")):
+        raise AssertionError(f"{name}: a kernel was not called on its I "
+                             f"and first P frame")
+    return check_clip_calls(rec.calls)
+
+
 def profile_frames(data):
     """Device time of K1-K4 from torch.profiler: the decode of the I
     frame alone, and of the I and first P frames (the P frame is the
-    difference).  Each decode is checked like the main path's; only the
-    profiler's own calls may fail softly.  -> ({kernel: {"i_frame": ms,
-    "p_frame": ms}}, None), a value None where the profiler showed no
-    device time for the kernel; or (None, why) where the profiler itself
-    failed."""
+    difference).  Each decode is checked like the main path's, and a
+    profiler that fails fails the phase.  -> {kernel: {"i_frame": ms,
+    "p_frame": ms}}, a value None where the trace holds no device time
+    for the kernel (an I frame runs no K2)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = {"intra": ("owner_kernel", "wavefront_kernel"),
@@ -676,25 +716,12 @@ def profile_frames(data):
              "filter": ("filter_frame_kernel",)}
     tot = []
     for n in (1, 2):
-        try:
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            prof.start()
-        except Exception as e:      # no profiler: a reading, not a check
-            return None, f"{type(e).__name__}: {e}"
-        try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             decode_checked(data, n)
             torch.cuda.synchronize()
-        finally:
-            stopped = _profiler_call(prof.stop)
-        if stopped is not None:
-            return None, stopped
         t = dict.fromkeys(names, 0.0)
-        events = []
-        why = _profiler_call(lambda: events.extend(prof.key_averages()))
-        if why is not None:
-            return None, why
-        for e in events:
+        for e in prof.key_averages():
             us = (getattr(e, "self_device_time_total", 0) or
                   getattr(e, "self_cuda_time_total", 0))
             for k, pats in names.items():
@@ -703,16 +730,153 @@ def profile_frames(data):
         tot.append(t)
     return {k: {"i_frame": tot[0][k] or None,
                 "p_frame": (tot[1][k] - tot[0][k]) if tot[1][k] else None}
-            for k in names}, None
+            for k in names}
 
 
-def _profiler_call(fn):
-    """Run one of the profiler's own calls -> None, or why it failed."""
+# ---------------------------------------------------------------------------
+# phase 6: the pipelined decoder on the four 8-bit 4:2:0 bench streams
+# ---------------------------------------------------------------------------
+
+# (name, frames, luma shape): every frame of each stream, the SHVC stream's
+# base layer only
+PIPELINE_STREAMS = (("1080p_main", 24, (1080, 1920)),
+                    ("bqmall_480p", 16, (480, 832)),
+                    ("4k_main", 10, (2160, 3840)),
+                    ("shvc_4k60", 4, (1080, 1920)))
+PIPELINE_RUNS = 2              # each stream decoded twice
+PR6_SPLIT = {"prepare_s": 0.485, "enqueue_s": 1.006}   # PERF.md section 5
+
+
+def bench_stream(name):
+    (path,) = [os.path.join(ROOT, "streams", f)
+               for f in os.listdir(os.path.join(ROOT, "streams"))
+               if f.startswith(f"bench_{name}_") and f.endswith(".265")]
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def decode_pipelined(data, n_frames, shape):
+    """The whole stream through PipelinedDecoder() (the card by default),
+    every frame fetched to the host; raises unless n_frames frames of the
+    expected shape came out with every plane's MD5 matching.  -> (wall
+    seconds, launches per kernel, H2D copies, the decoder, the busy
+    seconds of the parser thread and of the dispatcher's frame dispatch
+    without its MD5 check).  The counters are set to 0 once the decoder
+    is built; the constant tables, cached per device, went up in an
+    earlier phase."""
+    import torch
+    from openhevc_tpu_torch.runtime import PipelinedDecoder
+    from openhevc_tpu_torch.torch_backend import device
+    from openhevc_tpu_torch.decoder.frontend import Frontend
+    dec = PipelinedDecoder(check_md5=True)
+    torch.cuda.synchronize()
+    device.reset_launches()
+    # the parser thread's busy time: every Frontend call it makes
+    busy = {"parse_s": 0.0}
+    saved = [(n, getattr(Frontend, n)) for n in ("decode_nal", "end_picture")]
+    for n, fn in saved:
+        setattr(Frontend, n, _timed(fn, busy, "parse_s"))
+    t = time.time()
+    frames = []
     try:
-        fn()
-    except Exception as e:          # no profiler: a reading, not a check
-        return f"{type(e).__name__}: {e}"
-    return None
+        for f in dec.frames(data):
+            f.host_planes()
+            frames.append(f)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in saved:
+            setattr(Frontend, n, fn)
+    wall = time.time() - t
+    busy["dispatch_s"] = dec.stats.decode_time_s
+    if (len(frames) != n_frames or dec.md5_ok != 3 * n_frames
+            or dec.md5_fail):
+        raise AssertionError(
+            f"pipelined decode: {len(frames)} frames of {n_frames}, md5_ok="
+            f"{dec.md5_ok} md5_fail={dec.md5_fail}")
+    half = (shape[0] // 2, shape[1] // 2)
+    want = [shape, half, half]
+    for f in frames:
+        if [tuple(p.shape) for p in f.host_planes()] != want:
+            raise AssertionError("pipelined decode: unexpected plane shapes")
+    return wall, device.launches(), device.h2d_copies(), dec, busy
+
+
+def check_no_sync(data):
+    """The dispatch of the 1080p clip's first P frame (prepare_host, the
+    upload, frame_step and copy_to_host_async: Decoder._reconstruct) on
+    the backend's compute stream, under
+    torch.cuda.set_sync_debug_mode("error"): any call that waits for the
+    device raises.  The three frames around it decode normally, MD5s
+    checked.  -> the POC checked."""
+    import torch
+    from openhevc_tpu_torch.decoder.frontend import Decoder
+    dec = Decoder(check_md5=True)
+    inner = dec._reconstruct
+    checked = []
+
+    def guarded(plan):
+        if plan.slice_type == 2 or checked:
+            return inner(plan)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            frame = inner(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked.append(plan.poc)
+        return frame
+    dec._reconstruct = guarded
+    with torch.cuda.stream(dec.backend.compute_stream):
+        frames = dec.decode_stream(_first_pictures(data, 3))
+        for f in frames:
+            f.host_planes()
+    torch.cuda.synchronize()
+    if len(checked) != 1 or dec.md5_ok != 9 or dec.md5_fail:
+        raise AssertionError(f"sync check: P frames {checked}, md5_ok="
+                             f"{dec.md5_ok}")
+    return checked[0]
+
+
+def idle_share(data, skip=4):
+    """The device's idle share in a steady window of the pipelined 1080p
+    decode: torch.profiler runs from the (skip+1)-th frame handed out to
+    the last; the window spans the first to the last device activity it
+    recorded (kernels, copies, fills), and idle is the part of it that no
+    device activity covers.  The decode is checked like the main path's;
+    a profiler that fails, or a trace without device activity, fails the
+    phase.  -> dict of numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from openhevc_tpu_torch.runtime import PipelinedDecoder
+    dec = PipelinedDecoder(check_md5=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    n = 0
+    for f in dec.frames(data):
+        f.host_planes()
+        n += 1
+        if n == skip:
+            prof.start()
+    torch.cuda.synchronize()
+    prof.stop()
+    if n != FRAMES or dec.md5_ok != 3 * FRAMES or dec.md5_fail:
+        raise AssertionError(f"profiled pipelined decode: {n} frames, "
+                             f"md5_ok={dec.md5_ok}")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if not spans:
+        raise AssertionError("idle share: no device activity in the trace")
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    return dict(frames=FRAMES - skip, window_ms=window / 1e3,
+                busy_ms=busy / 1e3, idle_share=1 - busy / window)
 
 
 KERNELS = (
@@ -725,6 +889,29 @@ KERNELS = (
     ("filter", "K4 deblock+sao", "openhevc_tpu_torch/csrc/filter.cu",
      "openhevc_tpu/tpu/filter_pallas.py:290"),
 )
+
+
+class refuse_plain:
+    """Inside: every kernel's plain version raises if it is called, so a
+    decode on the card can only have gone through the kernels."""
+
+    def __enter__(self):
+        from openhevc_tpu_torch.torch_backend import (filter as flt, intra,
+                                                      mc as mcm, paint)
+        self.plain = [(intra, "intra_plane_plain"), (mcm, "mc_plain"),
+                      (paint, "paint_plain_"), (flt, "_filter_plain")]
+        self.saved = [getattr(m, n) for m, n in self.plain]
+
+        def refuse(*a, **kw):
+            raise AssertionError("a plain version ran on the card's main "
+                                 "path")
+        for m, n in self.plain:
+            setattr(m, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.plain, self.saved):
+            setattr(m, n, fn)
 
 
 def main():
@@ -770,25 +957,14 @@ def main():
     # 4. decode the clip through the kernels only
     with open(STREAM, "rb") as f:
         data = f.read()
-    from openhevc_tpu_torch.torch_backend import (filter as flt, intra,
-                                                  mc as mcm, paint)
-    plain = [(intra, "intra_plane_plain"), (mcm, "mc_plain"),
-             (paint, "paint_plain_"), (flt, "_filter_plain")]
-    saved = [getattr(m, n) for m, n in plain]
-
-    def refuse(*a, **kw):
-        raise AssertionError("a plain version ran on the card's main path")
-    for m, n in plain:
-        setattr(m, n, refuse)
     t = time.time()
     split = {}
-    device.reset_launches()
-    frames, dec = decode_clip(data, FRAMES, split)
-    torch.cuda.synchronize()
-    wall = time.time() - t
-    counts = device.launches()
-    for (m, n), fn in zip(plain, saved):
-        setattr(m, n, fn)
+    with refuse_plain():
+        device.reset_launches()
+        frames, dec = decode_clip(data, FRAMES, split)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        counts = device.launches()
     print(f"decode frames={len(frames)} md5_ok={dec.md5_ok} "
           f"md5_fail={dec.md5_fail} wall_s={wall:.3f} "
           f"fps={len(frames) / wall:.3f} launches={json.dumps(counts)}",
@@ -816,17 +992,22 @@ def main():
     # 5. kernels against plain versions on the clip's inputs, then times
     t = time.time()
     times, clip_errs = time_kernels(data)
+    per_stream = {"1080p_main": clip_errs}
+    for name in CLIP_CHECK_STREAMS:
+        per_stream[name] = check_stream_calls(name)
+    torch.cuda.synchronize()
+    for name, e in per_stream.items():
+        print(f"kernels_clip stream={name} " + " ".join(
+            f"{k}={v}" for k, v in e.items()), flush=True)
+    clip_errs = {k: max(e[k] for e in per_stream.values())
+                 for k in clip_errs}
     print("kernels_clip " + " ".join(f"{k}={v}" for k, v in
                                      clip_errs.items()), flush=True)
     bad = {k: v for k, v in clip_errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with plain versions on the "
                              f"clip's inputs: {bad}")
-    prof, why = profile_frames(data)
-    if prof is None:
-        print(f"profile device_ms not measured (profiler "
-              f"failed: {why})", flush=True)
-        prof = {}
+    prof = profile_frames(data)
     for key, frames_ms in prof.items():
         print(f"profile {key} device_ms " + " ".join(
             f"{f}={'not measured' if v is None else f'{v:.4f}'}"
@@ -863,10 +1044,46 @@ def main():
                       f"plain_ms={p['plain_ms']:.4f} "
                       f"bound_ms={p['bound_ms']:.5f} "
                       f"library_ms={p['library_ms']:.4f}", flush=True)
-        if key in prof:
-            row["profiler_device_ms"] = prof[key]
+        row["profiler_device_ms"] = prof[key]
         rows.append(row)
     phase("timing", t)
+
+    # 6. the pipelined decoder: the four 8-bit 4:2:0 bench streams, each
+    # decoded twice through the kernels only, one upload a frame; the
+    # dispatch of a P frame without a host wait; the device's idle share
+    t = time.time()
+    fps = {}
+    with refuse_plain():
+        poc = check_no_sync(data)
+        print(f"pipeline sync_debug=error over the dispatch of P frame POC "
+              f"{poc}: no host wait", flush=True)
+        for name, n_frames, shape in PIPELINE_STREAMS:
+            sdata = data if name == "1080p_main" else bench_stream(name)
+            for run in range(PIPELINE_RUNS):
+                pwall, pcounts, h2d, pdec, busy = decode_pipelined(
+                    sdata, n_frames, shape)
+                fps.setdefault(name, []).append(n_frames / pwall)
+                print(f"pipeline {name} run={run + 1} frames={n_frames} "
+                      f"md5_ok={pdec.md5_ok} md5_fail={pdec.md5_fail} "
+                      f"wall_s={pwall:.3f} fps={n_frames / pwall:.3f} "
+                      f"launches={json.dumps(pcounts)} "
+                      f"h2d_per_frame={h2d / n_frames:.3f} " + " ".join(
+                          f"{k}={v:.3f}" for k, v in busy.items()),
+                      flush=True)
+                if h2d != n_frames or pcounts["intra"] != n_frames or \
+                        pcounts["filter"] != n_frames:
+                    raise AssertionError(
+                        f"pipeline {name}: {h2d} uploads and launches "
+                        f"{pcounts} for {n_frames} frames")
+        print("pipeline 1080p_main host split (serial decode) " + " ".join(
+            f"{k}={split[k]:.3f} (PR 6: {v})" for k, v in PR6_SPLIT.items())
+            + f"; serial fps={FRAMES / wall:.3f}, pipelined fps="
+            + " / ".join(f"{v:.3f}" for v in fps["1080p_main"]), flush=True)
+        idle = idle_share(data)
+    print("pipeline 1080p_main steady window " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in idle.items()), flush=True)
+    phase("pipeline", t)
     phase("total", T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)

@@ -658,6 +658,10 @@ class Decoder:
         if plan is not None:
             seg.append(self._emit(plan))
         out.extend(sorted(seg, key=lambda f: f.poc))
+        for f in out:
+            # K1's error word: a frame nobody fetched raises here too
+            if f.wire is not None:
+                f.wire.check()
         return out
 
     def _emit(self, plan):
@@ -675,42 +679,49 @@ class Decoder:
         return frame
 
     def _verify_md5(self, frame, expected):
-        from .sei import plane_md5
-        bd = self.fe.sps.bit_depth
-        hp = frame.host_planes()        # narrow wire fetch, not int32 planes
-        for c in range(3):
-            got = plane_md5(np.asarray(hp[c]), bd)
-            if got == expected[c]:
-                self.md5_ok += 1
-                self.stats.md5_ok += 1
-            else:
-                self.md5_fail += 1
-                self.stats.md5_fail += 1
-                raise AssertionError(
-                    f"MD5 mismatch poc {frame.poc} plane {c}: "
-                    f"{got.hex()} != {expected[c].hex()}")
+        tally_md5(self, frame, expected, self.fe.sps.bit_depth,
+                  raise_on_mismatch=True)
 
     def _reconstruct(self, plan) -> Frame:
-        wire = None
-        if self.backend is not None:
-            planes, wire = self.backend.decode_frame(plan, self.dpb)
-            # start the device->host wire stream now: by the time the
-            # caller fetches (e.g. the SHVC EL loop), transfers have been
-            # riding behind the async dispatch queue instead of
-            # serializing after the whole decode
-            if self.prefetch_wire:
-                for w in (wire if isinstance(wire, tuple) else (wire,)):
-                    if hasattr(w, "copy_to_host_async"):
-                        w.copy_to_host_async()
-        else:
-            planes = recon_np.execute_plan(plan, dpb=self.dpb)
-            recon_np.deblock_frame(plan, planes)
-            planes = recon_np.sao_frame(plan, planes,
-                                        1 << self.fe.sps.log2_ctb_size)
-        return Frame(poc=plan.poc, planes=planes, wire=wire,
-                     bit_depth=plan.bit_depth,
-                     mvf_mv=plan.mvf_mv, mvf_poc=plan.mvf_poc,
-                     mvf_pred=plan.mvf_pred, mvf_ref_idx=plan.mvf_ref_idx,
-                     rpl=plan.rpl, rpl_lt=plan.rpl_lt,
-                     wire_fmt=getattr(self.backend, "wire_fmt", None),
-                     fetch_cb=getattr(self.backend, "observe_output", None))
+        return reconstruct(self.backend, plan, self.dpb, self.prefetch_wire)
+
+
+def reconstruct(backend, plan, dpb, prefetch_wire) -> Frame:
+    """One plan's frame, for the serial and the pipelined decoder: on the
+    backend (its output wire's copy to the host started at once where
+    prefetch_wire, so it runs behind the frame's device work), or on the
+    host through recon_np where backend is None."""
+    wire = None
+    if backend is not None:
+        planes, wire = backend.decode_frame(plan, dpb)
+        if prefetch_wire:
+            wire.copy_to_host_async()
+    else:
+        planes = recon_np.execute_plan(plan, dpb=dpb)
+        recon_np.deblock_frame(plan, planes)
+        planes = recon_np.sao_frame(plan, planes, 1 << plan.log2_ctb_size)
+    return Frame(poc=plan.poc, planes=planes, wire=wire,
+                 mvf_mv=plan.mvf_mv, mvf_poc=plan.mvf_poc,
+                 mvf_pred=plan.mvf_pred, mvf_ref_idx=plan.mvf_ref_idx,
+                 rpl=plan.rpl, rpl_lt=plan.rpl_lt, md5=plan.md5,
+                 bit_depth=plan.bit_depth, conf_win=plan.conf_win,
+                 chroma_format_idc=plan.chroma_format_idc)
+
+
+def tally_md5(dec, frame, expected, bit_depth, raise_on_mismatch):
+    """Each plane's MD5 against the stream's SEI, counted on dec (md5_ok,
+    md5_fail and its stats).  The serial decoder raises on a mismatch; the
+    pipelined one, like the reference's, only counts."""
+    from .sei import plane_md5
+    for c, hp in enumerate(frame.host_planes()):    # the narrow wire fetch
+        got = plane_md5(np.asarray(hp), bit_depth)
+        if got == expected[c]:
+            dec.md5_ok += 1
+            dec.stats.md5_ok += 1
+            continue
+        dec.md5_fail += 1
+        dec.stats.md5_fail += 1
+        if raise_on_mismatch:
+            raise AssertionError(
+                f"MD5 mismatch poc {frame.poc} plane {c}: "
+                f"{got.hex()} != {expected[c].hex()}")

@@ -517,17 +517,11 @@ def decode_slice_native(sps, pps, sh, nal_type, payload: bytes, cur_poc,
                 last_ts=pic["last_ts"])
 
 
-def pack_levels_native(resid_rows, raw_levels, bucket_base, lv8,
-                       esc_cap=1024, esc8_cap=131072):
-    """One C pass over the resid SoA rows: 4-bit coefficient levels written
-    straight into the wire buffer `lv8` (per-bucket nibble regions at BYTE
-    offsets `bucket_base`), plus escapes: |level| in (7, 127] as int8-value
-    escapes, |level| > 127 as int16-value escapes.
-    -> (esc_bucket, esc_idx, esc_val, e8_bucket, e8_idx, e8_val)."""
+def gather_levels_native(resid_rows, raw_levels, bucket_base, lv16):
+    """One C pass over the resid SoA rows: each TU's coefficient levels,
+    clipped to int16, written straight into its (plane, size) bucket of
+    `lv16` (int16, bucket regions at ELEMENT offsets `bucket_base`)."""
     lib = get_lib()
-    if not hasattr(lib, "_packlv_ready"):
-        lib.pack_levels.restype = ctypes.c_int64
-        lib._packlv_ready = True
 
     def cp(a):
         return a.ctypes.data_as(ctypes.c_void_p)
@@ -535,27 +529,10 @@ def pack_levels_native(resid_rows, raw_levels, bucket_base, lv8,
     resid_rows = np.ascontiguousarray(resid_rows, np.int32)
     raw = np.ascontiguousarray(raw_levels, np.int32)
     bb = np.ascontiguousarray(bucket_base, np.int64)
-    assert lv8.dtype == np.int8 and lv8.flags.c_contiguous
-    while True:
-        eb = np.empty(esc_cap, np.int32)
-        ei = np.empty(esc_cap, np.int64)
-        ev = np.empty(esc_cap, np.int32)
-        e8b = np.empty(esc8_cap, np.int32)
-        e8i = np.empty(esc8_cap, np.int64)
-        e8v = np.empty(esc8_cap, np.int8)
-        n8 = ctypes.c_int64(0)
-        n = lib.pack_levels(cp(resid_rows), ctypes.c_int64(len(resid_rows)),
-                            cp(raw), cp(bb), cp(lv8), cp(eb), cp(ei), cp(ev),
-                            ctypes.c_int64(esc_cap),
-                            cp(e8b), cp(e8i), cp(e8v),
-                            ctypes.c_int64(esc8_cap), ctypes.byref(n8))
-        if n <= esc_cap and n8.value <= esc8_cap:
-            return (eb[:n], ei[:n], ev[:n],
-                    e8b[:n8.value], e8i[:n8.value], e8v[:n8.value])
-        # rare: retry with the exact sizes (a retry re-packs lv8, which the
-        # caller pre-zeroed once — nibble bytes are rewritten identically)
-        esc_cap = max(esc_cap, int(n))
-        esc8_cap = max(esc8_cap, int(n8.value))
+    if lv16.dtype != np.int16 or not lv16.flags.c_contiguous:
+        raise ValueError("gather_levels: contiguous int16 buffer expected")
+    lib.gather_levels(cp(resid_rows), ctypes.c_int64(len(resid_rows)),
+                      cp(raw), cp(bb), cp(lv16))
 
 
 def unpack_d5_native(wire, shapes, caps):

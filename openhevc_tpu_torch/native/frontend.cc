@@ -2633,73 +2633,33 @@ extern "C" int64_t split_ops(const int32_t *ops, int64_t n, int32_t has_wp,
     return 0;
 }
 
-// Pack per-TU coefficient levels into the NIBBLE wire format, one pass in
-// decode order (the order tpu/plan_soa.py resid_fields keeps its rows in).
-// 97-99% of CABAC levels on real content fit 4-bit two's complement
-// ([-8, 7]); each pair of levels packs into one byte (low nibble = even
-// element).  Values outside [-8, 7] are emitted as escapes the device
-// scatters over the nibble-widened plane: (7, 127] as int8-value escapes
-// (bucket, flat index, int8 value), the ultra-rare |v| > 127 (clipped to
-// the int16 spec coefficient range first) as int16-value escapes.
-// Buckets are (c_idx, log2n): b = c*4+log2n-2.  bucket_base holds BYTE
-// offsets of each bucket's nibble region in lv8; regions may be PADDED
-// (sticky caps) and padding bytes are left untouched (caller pre-zeroes).
-// Block element counts (nn >= 16, even) keep every TU byte-aligned.
-// Returns the total number of int16 escapes; *n8_out gets the total number
-// of int8 escapes (only the first esc_cap/esc8_cap of each are written --
-// the caller retries with bigger buffers when a count exceeds its cap).
-extern "C" int64_t pack_levels(
+// Gather per-TU coefficient levels into int16 (N, n, n) buckets, one pass
+// in decode order (the order torch_backend/plan_soa.py resid_fields keeps
+// its rows in), each level clipped to the spec's int16 coefficient range.
+// Buckets are (c_idx, log2n): b = c*4+log2n-2.  bucket_base holds ELEMENT
+// offsets of each bucket in lv16; buckets may be PADDED (sticky caps) and
+// padding is left untouched (the caller pre-zeroes).
+extern "C" void gather_levels(
     const int32_t *resid, int64_t nr,    // (nr, 8) rows, decode order
     const int32_t *raw_levels,
-    const int64_t *bucket_base,          // 12 byte offsets into lv8
-    int8_t *lv8,
-    int32_t *esc_bucket, int64_t *esc_idx, int32_t *esc_val,
-    int64_t esc_cap,
-    int32_t *e8_bucket, int64_t *e8_idx, int8_t *e8_val,
-    int64_t esc8_cap, int64_t *n8_out)
+    const int64_t *bucket_base,          // 12 element offsets into lv16
+    int16_t *lv16)
 {
     int64_t fill[12] = {0};
-    int64_t nesc = 0, nesc8 = 0;
     for (int64_t r = 0; r < nr; r++) {
         const int32_t *row = resid + r * 8;
         int b = row[0] * 4 + (row[3] - 2);
         int nn = 1 << (2 * row[3]);
         const int32_t *src = raw_levels + row[6];
-        int64_t ebase = fill[b] * nn;
-        int8_t *dst = lv8 + bucket_base[b] + (ebase >> 1);
-        for (int k = 0; k < nn; k += 2) {
-            uint8_t byte = 0;
-            for (int half = 0; half < 2; half++) {
-                int32_t v = src[k + half];
-                if (v > 32767) v = 32767;    // spec int16 coefficient range
-                if (v < -32768) v = -32768;
-                int32_t v4 = v;
-                if (v < -8 || v > 7) {
-                    if (v >= -128 && v <= 127) {
-                        if (nesc8 < esc8_cap) {
-                            e8_bucket[nesc8] = b;
-                            e8_idx[nesc8] = ebase + k + half;
-                            e8_val[nesc8] = (int8_t)v;
-                        }
-                        nesc8++;
-                    } else {
-                        if (nesc < esc_cap) {
-                            esc_bucket[nesc] = b;
-                            esc_idx[nesc] = ebase + k + half;
-                            esc_val[nesc] = v;
-                        }
-                        nesc++;
-                    }
-                    v4 = 0;          // device scatters the true value
-                }
-                byte |= (uint8_t)(v4 & 15) << (4 * half);
-            }
-            dst[k >> 1] = (int8_t)byte;
+        int16_t *dst = lv16 + bucket_base[b] + fill[b] * nn;
+        for (int k = 0; k < nn; k++) {
+            int32_t v = src[k];
+            if (v > 32767) v = 32767;
+            if (v < -32768) v = -32768;
+            dst[k] = (int16_t)v;
         }
         fill[b]++;
     }
-    *n8_out = nesc8;
-    return nesc;
 }
 
 // Invert the "d5" delta output wire (tpu/frame_step.py tail): 24-byte

@@ -2,12 +2,15 @@
 
 Port of ``openhevc_tpu/tpu/backend.py::TpuBackend`` for the main path: the
 host half (``prepare_host``) turns a FramePlan from the native front-end
-into named plan arrays, keyed exactly as the reference's
-``frame_step._unpack`` keys its output; ``frame_arrays`` moves them to the
-device; ``frame_step`` reconstructs the frame with the hand-written
-kernels.  The reference's single packed int16/nibble blob existed for a
-~40 MB/s host link and is not rebuilt: each array travels in the narrow
-type its values need and widens to int32 on the device.
+into named plan arrays, keyed as the reference's ``frame_step._unpack``
+keys its output, written straight into one buffer (``upload.py``: pinned
+memory from a small ring on the card); ``upload`` moves that buffer with
+one host-to-device copy on a copy stream and widens it to int32 on the
+compute stream; ``frame_step`` reconstructs the frame with the
+hand-written kernels; the output wire comes back through ``wire.Wire``.
+The reference's nibble-and-escape coding of the coefficient levels
+existed for a ~40 MB/s host link and is not rebuilt: the levels travel as
+int16.  Nothing in the dispatch of a frame waits for the device.
 
 Paths are chosen from this backend's device, not from a global backend:
 the intra kernel (K1) and the fused deblock+SAO kernel always run
@@ -20,11 +23,12 @@ import numpy as np
 import torch
 
 from ..decoder.plan import FramePlan
-from . import plan_soa
+from . import plan_soa, upload
 from .device import pick_device
 from .filter import build_sao_grids
 from .frame_step import frame_step
 from .plan_compile import TILE_SIZES, pad_batch
+from .wire import Wire
 
 
 def _pow2(x):
@@ -45,23 +49,16 @@ def _quant(x):
     return p
 
 
-def _nibbles(buf, off, shape):
-    """Sign-extended 4-bit pairs (low nibble = even element)."""
-    size = int(np.prod(shape))
-    raw = buf[off:off + size // 2].astype(np.int32) & 0xFF
-    lo = raw & 15
-    lo = lo - ((lo & 8) << 1)
-    hi = raw >> 4
-    hi = hi - ((hi & 8) << 1)
-    return np.stack([lo, hi], axis=-1).reshape(shape).astype(np.int8)
-
-
 class CudaBackend:
     """Decoder back-end on one device (``cuda`` unless ``device="cpu"``).
 
     Sticky batch capacities follow the reference (batches only grow across
     frames of one family), so ``frame_arrays`` matches the reference's plan
-    arrays frame for frame.
+    arrays frame for frame.  On the card the backend owns three streams:
+    ``copy_stream`` carries the plan uploads, ``d2h_stream`` the output
+    wires, and ``compute_stream`` is there for a caller that runs the
+    frames' device work off the default stream (runtime/pipeline.py); the
+    kernels run on whatever stream is current.
     """
 
     def __init__(self, device=None):
@@ -69,31 +66,39 @@ class CudaBackend:
         self._inter_caps = {}
         self._work_caps = {}
         self._resid_len = {"I": {}, "PB": {}}
-        self._resc_len = {"I": {}, "PB": {}}
-        self._rese_len = {"I": {}, "PB": {}}
         self._ipal_chunks = {"I": {}, "PB": {}}
+        dev = self.device
+        if dev.type == "cuda":
+            self.copy_stream = torch.cuda.Stream(dev)
+            self.compute_stream = torch.cuda.Stream(dev)
+            self.d2h_stream = torch.cuda.Stream(dev)
+            self._ring = upload.PinnedRing()
+        else:
+            self.copy_stream = self.compute_stream = self.d2h_stream = None
+            self._ring = None
 
     # ---- frame entry points (decoder/frontend.py calls decode_frame) ----
 
     def decode_frame(self, plan: FramePlan, dpb):
-        """-> ([Y, U, V] device int32 planes, uint8 wire)."""
+        """-> ([Y, U, V] device int32 planes, the frame's Wire)."""
         return self.decode_prepared(self.prepare_host(plan), dpb)
 
     def decode_prepared(self, prep, dpb):
         """Device half: upload the plan arrays, gather the reference planes
-        from the DPB, run frame_step."""
+        from the DPB, run frame_step on the current stream."""
         plan, host, prof, ref_pocs = prep
         refs = self._build_refs(plan, ref_pocs, dpb) if ref_pocs else None
-        *planes, wire = frame_step(refs, self.upload(host), prof)
-        return list(planes), wire
+        *planes, wire, errors = frame_step(refs, self.upload(host), prof)
+        return list(planes), Wire(wire, self.d2h_stream, errors, plan.poc)
 
     def frame_arrays(self, plan: FramePlan):
         """The plan arrays of one frame as int32 device tensors."""
         return self.upload(self.prepare_host(plan)[1])
 
     def upload(self, host):
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            self.device).to(torch.int32) for k, v in host.items()}
+        """A HostPlan -> {key: int32 tensor on the device}: one copy."""
+        return upload.to_device(host, self.device, self.copy_stream,
+                                self._ring)
 
     def _build_refs(self, plan, ref_pocs, dpb):
         from ..decoder.refs import get_or_synth
@@ -110,12 +115,15 @@ class CudaBackend:
     # ---- host half ----
 
     def prepare_host(self, plan: FramePlan):
-        """-> (plan, {path: ndarray}, prof, ref_pocs).
+        """-> (plan, HostPlan {path: ndarray}, prof, ref_pocs).
 
-        The arrays hold exactly the values the reference's blob carries
-        (int16 fields cast through int16, int8 fields through int8, the
-        coefficient levels as sign-extended nibbles with their escape
-        sections), so frame_step applies the same escapes.
+        The arrays hold the values the reference's blob carries (int16
+        fields cast through int16, int8 fields through int8), except the
+        coefficient levels, which are whole int16 values where the
+        reference carries nibbles and escapes.  They are views into one
+        buffer (upload.HostPlan) laid out as ``prof["layout"]`` says; on
+        the card the buffer belongs to the backend's pinned ring and is
+        reused a few frames later, so upload it before preparing more.
         """
         bd = plan.bit_depth
         cfmt = plan.chroma_format_idc
@@ -136,16 +144,16 @@ class CudaBackend:
         if plan.deblock_beta_map is not None:
             raise NotImplementedError("per-CTB deblocking offset maps")
 
-        out = {}
+        out = {}                            # path -> (dtype, array)
 
-        def add(path, arr):                 # int16 wire fields
-            out[path] = np.asarray(arr).astype(np.int16)
+        def add(path, arr):                 # int16 fields
+            out[path] = (np.int16, np.asarray(arr))
 
-        def add8(path, arr):                # int8 wire fields
-            out[path] = np.asarray(arr).astype(np.int8)
+        def add8(path, arr):                # int8 fields
+            out[path] = (np.int8, np.asarray(arr))
 
-        def addu(path, arr):                # 2-bit / 1-bit packed fields
-            out[path] = np.asarray(arr).astype(np.uint8)
+        def addu(path, arr):                # 2-bit / 1-bit fields
+            out[path] = (np.uint8, np.asarray(arr))
 
         # ---- inter batches (compacted MC work form) ----
         if len(soa["inter"]):
@@ -230,53 +238,7 @@ class CudaBackend:
                 (add if f in ("xs", "ys") else add8)(("resid", c, n, f), v)
             add8(("resid", c, n, "valid"), valid)
             lv_specs.append((key, n_rows, tgt))
-
-        # coefficient levels: 4-bit nibbles + (index, value) escapes, as
-        # the reference's blob carries them (native one-pass pack)
-        off8 = 0
-        lv_offs = []
-        bucket_base = np.zeros(12, np.int64)
-        for (key, n_rows, tgt) in lv_specs:
-            c, n = key
-            lv_offs.append(off8)
-            bucket_base[c * 4 + (n.bit_length() - 3)] = off8
-            off8 += tgt * n * n // 2
-        packed8 = np.zeros(max(off8, 1), np.int8)
-        if lv_specs:
-            from ..native import pack_levels_native
-            eb, ei, ev, e8b, e8i, e8v = pack_levels_native(
-                soa["resid"], plan.raw_levels, bucket_base, packed8)
-        for (key, n_rows, tgt), o8 in zip(lv_specs, lv_offs):
-            c, n = key
-            out[("resid", c, n, "levels")] = _nibbles(packed8, o8,
-                                                      (tgt, n, n))
-            b = c * 4 + (n.bit_length() - 3)
-            oob = tgt * n * n
-            m = eb == b
-            cnt = int(m.sum())
-            ecap = max(_pow2(cnt) if cnt else 0,
-                       self._resc_len[fam].get(key, 0))
-            self._resc_len[fam][key] = ecap
-            if ecap:
-                idx = np.full(ecap, oob, np.int64)
-                val = np.zeros(ecap, np.int32)
-                idx[:cnt] = ei[m]
-                val[:cnt] = ev[m]
-                add(("resc", c, n, "lo"), idx & 0xFFFF)
-                add(("resc", c, n, "hi"), idx >> 16)
-                add(("resc", c, n, "val"), val)
-            d, v8 = self._delta_escapes(e8i[e8b == b], e8v[e8b == b])
-            e8cap = max(_quant(len(d)) if len(d) else 0,
-                        self._rese_len[fam].get(key, 0))
-            self._rese_len[fam][key] = e8cap
-            if e8cap:
-                dd = np.zeros(e8cap, np.int64)
-                val = np.zeros(e8cap, np.int8)
-                dd[:len(d)] = d
-                val[:len(d)] = v8
-                add(("rese", c, n, "d"), dd.astype(np.uint16).view(np.int16))
-                add8(("rese", c, n, "val"), val)
-            resid_keys.append((c, n, tgt, ecap, e8cap))
+            resid_keys.append((c, n, tgt))
 
         # ---- deblocking maps ----
         deblock_on = not plan.deblock_disable
@@ -330,7 +292,34 @@ class CudaBackend:
                     tc_off=plan.tc_offset, cb_off=plan.cb_qp_offset,
                     cr_off=plan.cr_qp_offset, log2_ctb=plan.log2_ctb_size,
                     ipal=ipal)
-        return (plan, out, prof, list(ref_pocs))
+        host = self._write_host(out, lv_specs, soa["resid"], plan.raw_levels)
+        prof["layout"] = host.layout
+        return (plan, host, prof, list(ref_pocs))
+
+    def _write_host(self, out, lv_specs, resid_rows, raw_levels):
+        """The frame's arrays written into one HostPlan: the fields from
+        out, and the coefficient levels, one int16 (N, n, n) bucket a
+        (plane, size), gathered straight from the front-end's raw levels
+        (padding rows zero)."""
+        specs = {k: (dt, a.shape) for k, (dt, a) in out.items()}
+        for ((c, n), _rows, tgt) in lv_specs:
+            specs[("resid", c, n, "levels")] = (np.int16, (tgt, n, n))
+        layout, nbytes = upload.plan_layout(specs)
+        host = upload.host_plan(layout, nbytes, self._ring)
+        for k, (_dt, a) in out.items():
+            host[k][...] = a
+        if lv_specs:
+            sec = host.section(np.dtype(np.int16))
+            offs = {key: off for dt, _start, _n, items in layout
+                    if dt == np.int16 for key, off, _shape in items}
+            bucket_base = np.zeros(12, np.int64)
+            for ((c, n), n_rows, _tgt) in lv_specs:
+                key = ("resid", c, n, "levels")
+                host[key][n_rows:] = 0
+                bucket_base[c * 4 + n.bit_length() - 3] = offs[key]
+            from ..native import gather_levels_native
+            gather_levels_native(resid_rows, raw_levels, bucket_base, sec)
+        return host
 
     def _work_form(self, b, valid, key):
         """Compacted MC work batch: one entry per needed (PU, direction),
@@ -362,27 +351,3 @@ class CudaBackend:
         wf["i0"] = i0
         wf["i1"] = i1
         return wf
-
-    @staticmethod
-    def _delta_escapes(idx, vals):
-        """int8-value escapes as uint16 index gaps (idx = cumsum(d) - 1),
-        hops over 65535 split into zero-value entries."""
-        if not len(idx):
-            return np.zeros(0, np.int64), np.zeros(0, np.int8)
-        perm = np.argsort(idx, kind="stable")
-        idx8 = idx[perm]
-        v8 = vals[perm]
-        d = np.diff(idx8 + 1, prepend=np.int64(0))
-        nsplit = (d - 1) // 65535
-        if nsplit.any():
-            dl, vl = [], []
-            for dj, vj, ns in zip(d, v8, nsplit):
-                for _ in range(int(ns)):
-                    dl.append(65535)
-                    vl.append(0)
-                    dj -= 65535
-                dl.append(int(dj))
-                vl.append(vj)
-            d = np.asarray(dl, np.int64)
-            v8 = np.asarray(vl, np.int8)
-        return d, v8

@@ -3,15 +3,20 @@
 Entry points run on ``cuda`` unless the caller asks for ``cpu`` (the
 tests do).  A CUDA tensor always goes through its hand-written kernel; the
 plain PyTorch versions serve CPU tensors only, so a run on the card can
-never fall back to them silently.  The launch counters are the one piece
-of module state: each kernel wrapper adds one where it launches its kernel,
-so a caller can show that a decode really went through the kernels.
+never fall back to them silently.  The counters are the one piece of
+module state: each kernel wrapper adds one where it launches its kernel,
+and the plan upload one for each host-to-device copy it makes, so a caller
+can show that a decode really went through the kernels, with one upload a
+frame.
 """
 
+import numpy as np
 import torch
 
 KERNELS = ("intra", "mc", "paint", "filter")
 LAUNCHES = {k: 0 for k in KERNELS}
+H2D = "h2d"             # host-to-device copies, counted beside the kernels
+LAUNCHES[H2D] = 0
 
 
 def pick_device(device=None):
@@ -37,6 +42,15 @@ def check_exact_math():
                            "transforms need it off")
 
 
+def table(values, dev, dtype=None):
+    """A constant table as a tensor on dev (counted as a host-to-device
+    copy on the card).  Callers cache it: one copy a table and device, not
+    one a frame."""
+    if dev.type == "cuda":
+        count(H2D)
+    return torch.as_tensor(np.asarray(values, dtype), device=dev)
+
+
 def count(kernel):
     LAUNCHES[kernel] += 1
 
@@ -47,4 +61,9 @@ def reset_launches():
 
 
 def launches():
-    return dict(LAUNCHES)
+    """-> {kernel: launches} for the four kernels."""
+    return {k: LAUNCHES[k] for k in KERNELS}
+
+
+def h2d_copies():
+    return LAUNCHES[H2D]

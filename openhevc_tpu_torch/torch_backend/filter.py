@@ -13,6 +13,7 @@ x = 8k; H grids: (Hp/8, Wp/4) with row k = edge at y = 8k), so the tests
 hold them against the reference array for array.
 """
 
+import functools
 import struct
 
 import numpy as np
@@ -24,6 +25,13 @@ from . import cuda_lib, device
 HALO = 8
 _BETA = np.asarray(BETA_TABLE, np.int32)
 _TC = np.asarray(TC_TABLE, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def tables(dev):
+    """The constant tables of the grid builders on dev, made once a
+    device."""
+    return dict(beta=device.table(_BETA, dev), tc=device.table(_TC, dev))
 
 
 def _b2(x, axis):
@@ -38,8 +46,8 @@ def build_luma_grids(vbs, hbs, qp_map, beta_off, tc_off, nfm, bd, Hp, Wp):
     if isinstance(beta_off, tuple) or isinstance(tc_off, tuple):
         raise NotImplementedError("per-CTB deblocking offset maps")
     dev = qp_map.device
-    beta_t = torch.as_tensor(_BETA, device=dev)
-    tc_t = torch.as_tensor(_TC, device=dev)
+    consts = tables(dev)
+    beta_t, tc_t = consts["beta"], consts["tc"]
     ne = Wp // 8 - 1
     bs4 = vbs[:, 1:ne + 1]
     qp8 = (qp_map[:, 0:ne] + qp_map[:, 1:ne + 1] + 1) >> 1
@@ -86,7 +94,7 @@ def build_chroma_grids(vbs, hbs, qp_map, qp_off, tc_off_v, tc_off_h, nfm,
                        qpc_table, bd, Hc, Wc, hsub, vsub, four20):
     """Chroma-plane grids: ((v_tc, v_nop, v_noq), (h_tc, h_nop, h_noq))."""
     dev = qp_map.device
-    tc_t = torch.as_tensor(_TC, device=dev)
+    tc_t = tables(dev)["tc"]
     ar = lambda n: torch.arange(n, device=dev)   # noqa: E731
     ne = Wc // 8 - 1
     ex = (ar(ne) + 1) * hsub

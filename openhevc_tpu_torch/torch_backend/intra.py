@@ -256,17 +256,40 @@ def intra_schedule(meta, H, W, c_idx, c444=False):
 _LAUNCH = struct.Struct("@" + "5P4i" * 3 + "2P4i")
 
 
+class IntraErrors:
+    """K1's error word on its way to the host: a copy into pinned host
+    memory behind an event on the launch's stream, so the launch never
+    waits.  ``check`` waits for that event and raises where the kernel
+    met metadata it cannot schedule."""
+
+    def __init__(self, word, event=None):
+        self.word = word            # (1,) int32 host tensor
+        self.event = event          # None: the word is already there
+
+    def check(self, poc=None):
+        if self.event is not None:
+            self.event.synchronize()
+        err = int(self.word[0])
+        if err:
+            where = "" if poc is None else f" (frame POC {poc})"
+            raise RuntimeError(
+                f"intra: metadata the wavefront cannot schedule{where}: "
+                + "; ".join(v for k, v in ERRORS.items() if err & k))
+
+
 def intra_planes(planes, resids, metas, c_idxs, bd, strong, c444):
     """Reconstruct the intra blocks of up to three planes.
 
     planes/resids: (H, W) int32 tensors; metas: (n_chunks, CHUNK, NF) int32
-    tensors in decode order; c_idxs: the plane indices.  Returns new
-    planes.  CPU tensors take the plain version (decode order, any
-    metadata); CUDA tensors the wavefront kernel (all planes in one call),
-    which raises on metadata it cannot schedule (see intra_schedule).
+    tensors in decode order; c_idxs: the plane indices.  Returns (new
+    planes, errors).  CPU tensors take the plain version (decode order,
+    any metadata), and errors is None.  CUDA tensors take the wavefront
+    kernel (all planes in one call); errors is an IntraErrors whose
+    ``check`` raises on metadata the kernel could not schedule (see
+    intra_schedule).  Nothing here waits for the device.
     """
     if not planes:
-        return []
+        return [], None
     dev = planes[0].device
     for p, r, m in zip(planes, resids, metas):
         for t in (p, r, m):
@@ -281,7 +304,7 @@ def intra_planes(planes, resids, metas, c_idxs, bd, strong, c444):
         raise ValueError("intra: unsupported arguments")
     if dev.type == "cpu":
         return [intra_plane_plain(p, r, m, c, bd, strong, c444)
-                for p, r, m, c in zip(planes, resids, metas, c_idxs)]
+                for p, r, m, c in zip(planes, resids, metas, c_idxs)], None
     if dev.type != "cuda":
         raise ValueError(f"intra: unsupported device {dev}")
     cuda_lib.check_size("ohk_intra", _LAUNCH.size)
@@ -299,11 +322,11 @@ def intra_planes(planes, resids, metas, c_idxs, bd, strong, c444):
     fields += [0] * 9 * (3 - len(planes))
     q = _LAUNCH.pack(*fields, base + 4 * owner, base + 4 * (owner + 3),
                      len(planes), bd, int(bool(strong)), int(bool(c444)))
-    cuda_lib.launch("ohk_intra", q, cuda_lib.stream_ptr(dev))
+    stream = torch.cuda.current_stream(dev)
+    cuda_lib.launch("ohk_intra", q, stream.cuda_stream)
     device.count("intra")
-    err = int(scratch[-1])          # waits for the launch
-    if err:
-        raise RuntimeError("intra: metadata the wavefront cannot schedule: "
-                           + "; ".join(v for k, v in ERRORS.items()
-                                       if err & k))
-    return outs
+    word = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    word.copy_(scratch[-1:], non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(stream)
+    return outs, IntraErrors(word, event)

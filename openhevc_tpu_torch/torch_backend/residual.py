@@ -10,10 +10,13 @@ the products are exact on the CPU and on the card (TF32 does not apply to
 float64; device.check_exact_math guards the float32 settings anyway).
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ..model.transforms import dct_matrix, TDST4, LEVEL_SCALE
+from .device import table
 
 KIND_DCT = 0
 KIND_DST = 1
@@ -36,6 +39,13 @@ def _inv_stage(mat, coeffs, shift):
     return _clip16((acc + (1 << (shift - 1))) >> shift)
 
 
+@functools.lru_cache(maxsize=None)
+def tables(dev):
+    """The constant tables of residual_batch on dev, made once a device."""
+    return dict(level_scale=table(_LEVEL_SCALE, dev), dst=table(_DST, dev),
+                mats={n: table(m, dev) for n, m in _MATS.items()})
+
+
 def residual_batch(levels, qp, kind, n, bit_depth=8, xtra=None):
     """levels (N, n, n), qp (N,), kind (N,) int -> (N, n, n) int32 residuals.
 
@@ -44,12 +54,12 @@ def residual_batch(levels, qp, kind, n, bit_depth=8, xtra=None):
     RExt per-block transforms: bits 0-1 rdpcm, bit 2 transform-skip
     rotation.
     """
-    dev = levels.device
+    consts = tables(levels.device)
     lv = levels.to(torch.int64)
     qp = qp.to(torch.int64)
     kind = kind.to(torch.int64)
     shift = bit_depth + (n.bit_length() - 1) - 5
-    ls = torch.as_tensor(_LEVEL_SCALE, device=dev)
+    ls = consts["level_scale"]
     scale = (ls[qp % 6] << (qp // 6))[:, None, None]
     # (lv*scale*16 + 1<<(shift-1)) >> shift, the x16 folded into the shift;
     # clamp lv so lv*scale stays < 2^30 (clamps saturate identically)
@@ -57,11 +67,11 @@ def residual_batch(levels, qp, kind, n, bit_depth=8, xtra=None):
     lv_c = torch.maximum(torch.minimum(lv, lim), -lim)
     deq = _clip16((lv_c * scale + (1 << (shift - 5))) >> (shift - 4))
 
-    mat = torch.as_tensor(_MATS[n], device=dev)
+    mat = consts["mats"][n]
     tmp = _inv_stage(mat, deq, 7)
     out = _inv_stage(mat, tmp.transpose(1, 2), 20 - bit_depth).transpose(1, 2)
     if n == 4:
-        dmat = torch.as_tensor(_DST, device=dev)
+        dmat = consts["dst"]
         tmp_d = _inv_stage(dmat, deq, 7)
         dst = _inv_stage(dmat, tmp_d.transpose(1, 2),
                          20 - bit_depth).transpose(1, 2)

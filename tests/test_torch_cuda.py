@@ -87,3 +87,38 @@ def test_port_decode_on_card(name, cfg, pattern):
     assert counts["mc"] <= inter
     if inter:
         assert counts["mc"] > 0
+
+
+@pytest.mark.cuda
+def test_pipelined_matches_serial_on_card():
+    """An encoder-made IPPBP stream (TMVP, SAO) through PipelinedDecoder()
+    and through Decoder(), both on the card by default: the same frames
+    in the same order, plane for plane, tolerance 0, every SEI MD5
+    passing, with one plan upload a frame in the pipeline."""
+    _need_card()
+    from openhevc_tpu_torch.decoder.frontend import Decoder
+    from openhevc_tpu_torch.runtime import PipelinedDecoder
+    from openhevc_tpu_torch.torch_backend import device
+    cfg = EncoderConfig(width=192, height=128, qp=30, log2_ctb=6, sao=True,
+                        temporal_mvp=True, rng_seed=37)
+    rng = np.random.default_rng(37)
+    enc = Encoder(cfg)
+    stream = b"".join(enc.parameter_set_nals())
+    base = make_source(rng, cfg.width, cfg.height)
+    for i, st in enumerate("IPPBP"):
+        src = [np.roll(np.roll(base[0], i, 0), 2 * i, 1),
+               np.roll(base[1], i, 0), np.roll(base[2], i, 0)]
+        stream += enc.encode_frame(src, st)[0]
+    serial = Decoder(check_md5=True)
+    want = [[np.asarray(p) for p in f.host_planes()]
+            for f in serial.decode_stream(stream)]
+    dec = PipelinedDecoder(check_md5=True)
+    device.reset_launches()
+    got = [[np.asarray(p) for p in f.host_planes()]
+           for f in dec.frames(stream)]
+    assert device.h2d_copies() == 5
+    assert dec.md5_ok == 15 and dec.md5_fail == 0 and serial.md5_ok == 15
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)

@@ -3,7 +3,10 @@
 ``CudaBackend.frame_arrays(plan)`` must hold, for the same FramePlan,
 exactly the arrays that the reference's ``frame_step._unpack`` reads from
 ``TpuBackend.prepare_host``'s packed blob (sequential-intra and fused-
-filter paths, as the TPU runs them), frame after frame.
+filter paths, as the TPU runs them), frame after frame.  The port ships
+the coefficient levels as whole int16 values where the reference ships
+nibbles and escape sections, so the reference's levels are compared
+after its escapes are applied (``_apply_ref_escapes``).
 """
 
 import os
@@ -53,6 +56,31 @@ def _reference_arrays(tb, plan):
     return {k: np.asarray(v) for k, v in out.items()}, prof
 
 
+def _apply_ref_escapes(want, resid_keys):
+    """The reference's levels with its escapes applied, as its frame_step
+    does (openhevc_tpu/tpu/frame_step.py:270-291): the int8-value escapes
+    (delta-coded indices, idx = cumsum(d) - 1) added, then the int16
+    escapes (idx = hi << 16 | lo) set; indices outside the bucket drop.
+    The escape sections are removed from want."""
+    for (c, n, _N, E, E8) in resid_keys:
+        lv = want[("resid", c, n, "levels")].astype(np.int32)
+        flat = lv.reshape(-1)
+        if E8:
+            dd = want.pop(("rese", c, n, "d")).astype(np.int64) & 0xFFFF
+            val = want.pop(("rese", c, n, "val")).astype(np.int32)
+            idx = np.cumsum(dd) - 1
+            ok = (idx >= 0) & (idx < flat.size)
+            np.add.at(flat, idx[ok], val[ok])
+        if E:
+            lo = want.pop(("resc", c, n, "lo")).astype(np.int64) & 0xFFFF
+            hi = want.pop(("resc", c, n, "hi")).astype(np.int64)
+            val = want.pop(("resc", c, n, "val")).astype(np.int32)
+            idx = (hi << 16) | lo
+            ok = (idx >= 0) & (idx < flat.size)
+            flat[idx[ok]] = val[ok]
+        want[("resid", c, n, "levels")] = lv
+
+
 def _check_plans(plans, monkeypatch):
     monkeypatch.setenv("OPENHEVC_IPAL", "interp")
     monkeypatch.setenv("OPENHEVC_FFILT", "interp")
@@ -64,6 +92,7 @@ def _check_plans(plans, monkeypatch):
     twin = CudaBackend(device="cpu")   # for the profile
     for i, plan in enumerate(plans):
         want, rprof = _reference_arrays(tb, plan)
+        _apply_ref_escapes(want, rprof[8])
         got = cb.frame_arrays(plan)
         assert set(got) == set(want), f"frame {i}: keys differ: " \
             f"{sorted(set(got) ^ set(want), key=str)}"
@@ -79,8 +108,9 @@ def _check_plans(plans, monkeypatch):
                 prof["tc_off"], prof["cb_off"], prof["cr_off"],
                 prof["log2_ctb"], prof["ipal"]) == \
             (rprof[0], rprof[1], rprof[2], rprof[3], rprof[4], rprof[5],
-             rprof[8], rprof[9], rprof[10], rprof[11], rprof[12], rprof[13],
-             rprof[14], rprof[18], rprof[19]), f"frame {i}: profile"
+             tuple(k[:3] for k in rprof[8]), rprof[9], rprof[10], rprof[11],
+             rprof[12], rprof[13], rprof[14], rprof[18], rprof[19]), \
+            f"frame {i}: profile"
 
 
 def _stream(cfg, pattern, seed):
