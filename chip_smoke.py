@@ -13,29 +13,43 @@ Drives ``openhevc_tpu_torch`` only (nothing of JAX or ``openhevc_tpu``):
    an overlap that it must reject (raise, not hang); K2 on one pass of
    every tile size and plane, depths 8 and 10; K3 on mixed passes; K4 on
    three-plane frames (one not a multiple of the CTB), depths 8 and 10;
+   then the variants of the other formats (``kernels_formats`` lines): K1
+   at depths 10-14, on 4:2:2 chroma planes and in 4:4:4 (c444); K2 for
+   chroma subsampling (1, 1), (1, 0) and (0, 0) at depths 8-14; K3 on
+   4:2:2 and 4:4:4 plane shapes with depth-14 values; K4 at depths 12 and
+   14, with 4:2:2 (32x64 chroma tiles) and 4:4:4 (64x64) chroma grids;
 4. decode: the committed 1080p Main clip through ``Decoder(check_md5=True)``
    (the card by default); every decoded-picture-hash SEI must match, every
    kernel must have launched, K1 and K4 once a frame, K2 at most once and
    K3 at most twice;
 5. timing: each kernel held again against its plain version, tolerance 0,
    on the clip's own inputs (the I frame's and the first P frame's calls),
-   and on those of BQMall 480p and 4K Main (the pipeline phase's other
-   shapes); then timed on the clip's (CUDA events) beside its plain
-   version, its bound and, where one exists, a single PyTorch call that
-   computes the same function:
-   K1 on the I and the P frame with the depth of its wavefront, K3 per
-   pass; torch.profiler's device time of every kernel where it has one;
+   and on those of BQMall 480p, 4K Main, 1080p Main-10, RExt 4:2:2 and
+   RExt 4:4:4 (the pipeline phase's other shapes and formats); then timed
+   on the clip's (CUDA events) beside its plain version, its bound and,
+   where one exists, a single PyTorch call that computes the same
+   function: K1 on the I and the P frame with the depth of its wavefront,
+   K3 per pass; torch.profiler's device time of every kernel where it has
+   one, on the clip's first two frames and on those of Main-10, 4:2:2
+   and 4:4:4 (one trace each, split at the I frame's K4);
 6. pipeline: the dispatch of one P frame of the clip (plan preparation,
    the one upload, the frame step, the start of the output copy) under
    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
-   wait; then the four 8-bit 4:2:0 bench streams (1080p Main 24 frames,
-   BQMall 480p 16, 4K Main 10, the SHVC stream's 1080p base layer 4),
-   each decoded twice in full through ``PipelinedDecoder()`` with the
-   plain versions refused: every MD5, one host-to-device copy a frame, K1
-   and K4 once a frame; the serial decode's host split beside the
-   pipelined fps; the device's idle share in a steady window of the
-   pipelined 1080p decode (torch.profiler, which must work);
-7. the ``kernels`` JSON line, the card line, and the final status line.
+   wait; then seven streams (1080p Main 24 frames, BQMall 480p 16, 4K Main
+   10, the SHVC stream's 1080p base layer 4, 1080p Main-10 20, RExt 4:2:2
+   8 and RExt 4:4:4 8), each decoded twice in full through
+   ``PipelinedDecoder()`` with the plain versions refused: every MD5, one
+   host-to-device copy a frame, K1 and K4 once a frame, every kernel
+   launched; the serial decode's host split beside the pipelined fps; the
+   device's idle share in a steady window of the pipelined 1080p decode
+   (torch.profiler, which must work);
+7. SHVC: both layers of the SHVC stream (1080p base, 4K enhancement, 4
+   pictures each) twice through ``ShvcDecoder()``, each layer on its own
+   backend on the card and X3, the inter-layer upsample, on the device:
+   every MD5 of both layers, every kernel launched; X3 held against the
+   NumPy model at tolerance 0 on one picture and timed beside its bound;
+8. the ``kernels`` JSON line (each kernel's variants and its launches on
+   every path), the card line, and the final status line.
 
 Any failure raises and the script exits non-zero without a status line.
 """
@@ -99,26 +113,32 @@ def cuda_ms(fn, reps=10, warmup=2):
 # phase 3: kernels against their plain versions at small shapes
 # ---------------------------------------------------------------------------
 
-def k1_blocks(rng, H, W, ctb, min_log2):
-    """A random quadtree of blocks (2^min_log2 to ctb) in z-order over the
-    CTBs of an (H, W) plane in raster order, split where a block would
-    cross the picture's edge.  -> [(x, y, n)] in decode order."""
+def k1_blocks(rng, H, W, ctb, min_log2, max_n=None, tall=False):
+    """A random quadtree of blocks (2^min_log2 to max_n, default ctb) in
+    z-order over the CTBs of an (H, W) plane in raster order, split where
+    a block would cross the picture's edge.  tall: CTBs of ctb x 2*ctb, as
+    a 4:2:2 chroma plane has them, each its upper square then its lower
+    one.  -> [(x, y, n)] in decode order."""
     out = []
+    max_n = max_n or ctb
 
     def split(x, y, n):
         if x >= W or y >= H:
             return
         inside = x + n <= W and y + n <= H
-        if n > 1 << min_log2 and (not inside or rng.random() < 0.55):
+        if n > max_n or (n > 1 << min_log2 and
+                         (not inside or rng.random() < 0.55)):
             h = n // 2
             for dy in (0, h):
                 for dx in (0, h):
                     split(x + dx, y + dy, h)
         else:
             out.append((x, y, n))
-    for cy in range(0, H, ctb):
+    ch = 2 * ctb if tall else ctb
+    for cy in range(0, H, ch):
         for cx in range(0, W, ctb):
-            split(cx, cy, ctb)
+            for sy in range(cy, cy + ch, ctb):
+                split(cx, sy, ctb)
     return out
 
 
@@ -166,25 +186,31 @@ def k1_meta(rng, blocks, flags):
     return meta
 
 
-def k1_cases(rng, H=136, W=200):
-    """Luma (CTB 32, blocks 4-32) and 4:2:0 chroma (CTB 16, blocks 4-16)
-    planes in valid decode order, with smooth planes (so the strong filter
-    fires) and small residuals.  -> [(c_idx, H, W, plane, resid, blocks,
+def k1_cases(rng, H=136, W=200, bd=8, cfmt=1):
+    """Luma (CTB 32, blocks 4-32) and a chroma plane in valid decode
+    order: 4:2:0 (half size, CTB 16, blocks 4-16), 4:2:2 (half width,
+    CTBs of 16x32, blocks 4-16) or 4:4:4 (full size, CTB 32, blocks 4-32,
+    the c444 kernel), with smooth planes (so the strong filter fires) and
+    small residuals at depth bd.  -> [(c_idx, H, W, plane, resid, blocks,
     flags, later)]."""
     cases = []
-    for c_idx, (h, w), ctb in ((0, (H, W), 32), (1, (H // 2, W // 2), 16)):
-        blocks = k1_blocks(rng, h, w, ctb, 2)
+    chroma = {1: ((H // 2, W // 2), 16, False), 2: ((H, W // 2), 16, True),
+              3: ((H, W), 32, False)}[cfmt]
+    for c_idx, (h, w), ctb, tall in ((0, (H, W), 32, False),
+                                     (1,) + chroma):
+        blocks = k1_blocks(rng, h, w, ctb, 2, tall=tall)
         flags, later = k1_flags(blocks, h, w)
         yy, xx = np.mgrid[0:h, 0:w]
-        plane = (60 + yy + xx // 2 + rng.integers(-2, 3, (h, w))).clip(
-            0, 255).astype(np.int32)
+        plane = (((60 + yy + xx // 2) << (bd - 8)) +
+                 rng.integers(-2, 3, (h, w))).clip(
+            0, (1 << bd) - 1).astype(np.int32)
         resid = rng.integers(-3, 4, (h, w)).astype(np.int32)
-        resid[rng.random((h, w)) < 0.02] = 90
+        resid[rng.random((h, w)) < 0.02] = 90 << (bd - 8)
         cases.append((c_idx, h, w, plane, resid, blocks, flags, later))
     return cases
 
 
-def _k1_run(dev, cases, metas, strong, poc=None):
+def _k1_run(dev, cases, metas, strong, poc=None, bd=8, c444=False):
     """K1 on the card against its plain version; K1's error check runs
     for a frame of the given POC and raises on metadata it rejected."""
     import torch
@@ -192,9 +218,9 @@ def _k1_run(dev, cases, metas, strong, poc=None):
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     args = ([t(c[3]) for c in cases], [t(c[4]) for c in cases],
             [t(m.reshape(-1, 128, 8)) for m in metas], [c[0] for c in cases])
-    got, errors = intra.intra_planes(*args, 8, strong, False)
+    got, errors = intra.intra_planes(*args, bd, strong, c444)
     errors.check(poc)
-    ref = [intra.intra_plane_plain(p, r, m, c, 8, strong, False)
+    ref = [intra.intra_plane_plain(p, r, m, c, bd, strong, c444)
            for p, r, m, c in zip(*args)]
     return max(int((g.long() - r.long()).abs().max())
                for g, r in zip(got, ref))
@@ -211,6 +237,29 @@ def check_k1(rng, dev):
         for c, m in zip(cases, metas):
             intra.intra_schedule(m, c[1], c[2], c[0])    # must not raise
         err = max(err, _k1_run(dev, cases, metas, strong))
+    return err
+
+
+# (depth, chroma format) of the small K1 checks beyond check_k1's 8-bit
+# 4:2:0: 4:2:2 chroma planes, and 4:4:4 (c444: chroma at luma block
+# sizes, with reference smoothing)
+K1_FORMATS = ((10, 1), (12, 1), (14, 1), (8, 2), (10, 2), (8, 3), (14, 3))
+CFMT = {1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}
+
+
+def check_k1_formats(rng, dev):
+    """The wavefront kernel against the sequential plain version at depths
+    10-14, on 4:2:2 chroma planes and in 4:4:4 (K1_FORMATS), strong
+    smoothing on."""
+    from openhevc_tpu_torch.torch_backend import intra
+    err = 0
+    for bd, cfmt in K1_FORMATS:
+        cases = k1_cases(rng, bd=bd, cfmt=cfmt)
+        metas = [k1_meta(rng, c[5], c[6]) for c in cases]
+        for c, m in zip(cases, metas):
+            intra.intra_schedule(m, c[1], c[2], c[0], cfmt == 3)
+        err = max(err, _k1_run(dev, cases, metas, 1, bd=bd,
+                               c444=cfmt == 3))
     return err
 
 
@@ -245,17 +294,17 @@ def check_k1_rejects(rng, dev):
     return 0
 
 
-def k2_pass(rng, dev, bd, n=96, H=96, W=128):
-    """One mixed pass: the six tile sizes on a luma plane and two 4:2:0
-    chroma planes, the chroma groups sharing the luma work vectors as
-    frame_step's do; a quarter of the motion vectors point far outside
-    the picture.  -> [McGroup]."""
+def k2_pass(rng, dev, bd, n=96, H=96, W=128, hs=1, vs=1):
+    """One mixed pass: the six tile sizes on a luma plane and two chroma
+    planes subsampled by (hs, vs), the chroma groups sharing the luma work
+    vectors as frame_step's do; a quarter of the motion vectors point far
+    outside the picture.  -> [McGroup]."""
     import torch
     from openhevc_tpu_torch.torch_backend.mc import McGroup
     from openhevc_tpu_torch.torch_backend.plan_compile import TILE_SIZES
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa
     refs = [t(rng.integers(0, 1 << bd, (3, h, w)))
-            for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+            for h, w in ((H, W), (H >> vs, W >> hs), (H >> vs, W >> hs))]
     groups = []
     for (w, h) in TILE_SIZES:
         sel = rng.integers(0, 3, n)
@@ -268,9 +317,9 @@ def k2_pass(rng, dev, bd, n=96, H=96, W=128):
         mvy[far] = rng.integers(-4000, 4000, far.sum())
         vecs = [t(a) for a in (sel, xs, ys, mvx, mvy)]
         for c in range(3):
-            s_ = min(c, 1)
-            groups.append(McGroup(refs[c], *vecs, w >> s_, h >> s_, c == 0,
-                                  bd, 1, 1, s_, s_))
+            sh_, sv_ = (hs, vs) if c else (0, 0)
+            groups.append(McGroup(refs[c], *vecs, w >> sh_, h >> sv_,
+                                  c == 0, bd, hs, vs, sh_, sv_))
     return groups
 
 
@@ -286,13 +335,33 @@ def check_k2(rng, dev):
     return err
 
 
-def k3_pass(rng, dev, dt, H=200, W=264, n=40):
-    """One mixed pass: the six tile shapes on two planes, disjoint tiles at
-    random places (some crossing the planes' right and bottom edges, some
-    invalid).  -> (groups, planes)."""
+K2_FORMATS = ((1, 1), (1, 0), (0, 0))        # (hs, vs): 4:2:0, 4:2:2, 4:4:4
+DEPTHS = (8, 10, 12, 14)
+
+
+def check_k2_formats(rng, dev):
+    """One pass of every tile size and plane for each chroma subsampling
+    (K2_FORMATS) at each depth 8-14, against mc_pass_plain."""
+    from openhevc_tpu_torch.torch_backend import mc as mcm
+    err = 0
+    for hs, vs in K2_FORMATS:
+        for bd in DEPTHS:
+            groups = k2_pass(rng, dev, bd, n=48, hs=hs, vs=vs)
+            err = max(err, _max_diff(mcm.mc_pass(groups),
+                                     mcm.mc_pass_plain(groups)))
+    return err
+
+
+def k3_pass(rng, dev, dt, H=200, W=264, n=40, shapes=None, lo=-3000,
+            hi=3000):
+    """One mixed pass: the six tile shapes on two planes (a luma plane and
+    an odd-sized one, or the given shapes), disjoint tiles of values in
+    [lo, hi) at random places (some crossing the planes' right and bottom
+    edges, some invalid).  -> (groups, planes)."""
     import torch
+    shapes = shapes or ((H, W), (H // 2 + 3, W // 2 + 5))
     planes = [torch.as_tensor(rng.integers(-99, 99, s), device=dev).to(dt)
-              for s in ((H, W), (H // 2 + 3, W // 2 + 5))]
+              for s in shapes]
     taken = [np.zeros(p.shape, bool) for p in planes]
     groups = []
     for (h, w) in ((4, 4), (16, 4), (4, 16), (16, 16), (32, 32), (64, 64)):
@@ -306,8 +375,7 @@ def k3_pass(rng, dev, dt, H=200, W=264, n=40):
             for y, x in zip(ys, xs):
                 taken[k][y:y + h, x:x + w] = True
             valid = (rng.random(len(pick)) > 0.2).astype(np.int32)
-            tiles = torch.as_tensor(rng.integers(-3000, 3000,
-                                                 (len(pick), h, w)),
+            tiles = torch.as_tensor(rng.integers(lo, hi, (len(pick), h, w)),
                                     device=dev).to(dt)
             groups.append((plane, tiles) + tuple(
                 torch.as_tensor(a, device=dev) for a in (xs, ys, valid)))
@@ -338,10 +406,32 @@ def check_k3(rng, dev):
     return err
 
 
-def k4_frame(rng, dev, H, W, bd, ctb=64):
-    """A 4:2:0 frame of (H, W) luma: three planes, their deblocking grids
-    built from random maps over the grids' padded geometry (so edges past
-    the picture carry nonzero tc), random SAO grids and restore masks."""
+def check_k3_formats(rng, dev):
+    """Mixed passes on the plane shapes of 4:2:2 (half-width chroma) and
+    4:4:4 (chroma at luma size), int32 and int16, with depth-14 sample
+    values, against paint_groups_plain_."""
+    import torch
+    from openhevc_tpu_torch.torch_backend import paint
+    err = 0
+    H, W = 136, 200
+    for shapes in (((H, W), (H, W // 2)), ((H, W), (H, W))):
+        for dt in (torch.int32, torch.int16):
+            groups, _ = k3_pass(rng, dev, dt, shapes=shapes, n=24, lo=0,
+                                hi=1 << 14)
+            got, gp = _clone_pass(groups)
+            ref, rp = _clone_pass(groups)
+            paint.paint_groups_(got)
+            paint.paint_groups_plain_(ref)
+            err = max(err, _max_diff(gp, rp))
+    return err
+
+
+def k4_frame(rng, dev, H, W, bd, ctb=64, cfmt=1):
+    """A frame of (H, W) luma in chroma format cfmt: three planes, their
+    deblocking grids built from random maps over the grids' padded
+    geometry (so edges past the picture carry nonzero tc; chroma grids
+    with four20 only in 4:2:0), random SAO grids a CTB of each plane
+    (csx x csy: 32x32, 32x64 or 64x64 for chroma) and restore masks."""
     import torch
     from openhevc_tpu_torch.torch_backend import filter as flt
     t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa
@@ -351,10 +441,11 @@ def k4_frame(rng, dev, H, W, bd, ctb=64):
     qp = t(rng.integers(15, 48, (Hp // 8, Wp // 8)))
     nfm = t(rng.random((Hp // 4, Wp // 4)) < 0.05)
     qpc = t([29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37])
+    hs, vs = (1 if cfmt in (1, 2) else 0), (1 if cfmt == 1 else 0)
     planes, grids, sao, restores = [], [], [], []
     for c in range(3):
-        h, w = (H, W) if c == 0 else (H // 2, W // 2)
-        cs = ctb >> min(c, 1)
+        h, w = (H, W) if c == 0 else (H >> vs, W >> hs)
+        csx, csy = (ctb, ctb) if c == 0 else (ctb >> hs, ctb >> vs)
         hi = 1 << bd
         base = rng.integers(hi // 4, 3 * hi // 4, (h // 8 + 1, w // 8 + 1))
         base = base.repeat(8, 0).repeat(8, 1)[:h, :w]
@@ -364,15 +455,52 @@ def k4_frame(rng, dev, H, W, bd, ctb=64):
                                               Hp, Wp))
         else:
             grids.append(flt.build_chroma_grids(
-                vbs, hbs, qp, c, 0, 0, nfm, qpc, bd, Hp // 2, Wp // 2, 2, 2,
-                True))
-        grid = (-(-h // cs), -(-w // cs))
+                vbs, hbs, qp, c, 0, 0, nfm, qpc, bd, Hp >> vs, Wp >> hs,
+                1 << hs, 1 << vs, cfmt == 1))
+        grid = (-(-h // csy), -(-w // csx))
         om = rng.integers(-7, 8, grid + (5,))
         om[..., 0] = 0
         sao.append((t(rng.integers(0, 3, grid)), t(rng.integers(0, 32, grid)),
                     t(rng.integers(0, 4, grid)), t(om)))
         restores.append(t(rng.random((h, w)) < 0.02) if c != 1 else None)
     return planes, grids, sao, restores
+
+
+# (luma H, W, depth, chroma format) of the K4 checks beyond check_k4's
+# 4:2:0 at depths 8 and 10: depths 12 and 14, 4:2:2 (chroma CTB tiles of
+# 32x64, four20=False) and 4:4:4 (chroma at luma geometry, 64x64)
+K4_FORMATS = ((200, 264, 12, 1), (200, 264, 14, 1), (200, 264, 8, 2),
+              (384, 512, 12, 2), (200, 264, 8, 3), (200, 264, 14, 3))
+
+
+def check_k4_formats(rng, dev):
+    """Three-plane calls of filter_planes against filter_planes_plain for
+    each of K4_FORMATS: deblock and SAO, deblock only, SAO only."""
+    from openhevc_tpu_torch.torch_backend import filter as flt
+    err = 0
+    for (H, W, bd, cfmt) in K4_FORMATS:
+        planes, grids, sao, rs = k4_frame(rng, dev, H, W, bd, cfmt=cfmt)
+        hs, vs = (1 if cfmt in (1, 2) else 0), (1 if cfmt == 1 else 0)
+        for db, so in ((True, True), (True, False), (False, True)):
+            args = (planes, grids if db else None, sao if so else None,
+                    rs if so else None)
+            kw = dict(bd=bd, deblock_on=db, sao_on=so, ctb=64, hs=hs, vs=vs)
+            err = max(err, _max_diff(flt.filter_planes(*args, **kw),
+                                     flt.filter_planes_plain(*args, **kw)))
+    return err
+
+
+# what the small-shape checks hold on the card, a kernel at a time
+SMALL_VARIANTS = {
+    "intra": ["4:2:0 depth 8 (both strong settings, and two rejections)"] + [
+        f"{CFMT[c]} depth {bd}" + (" (c444)" if c == 3 else "")
+        for bd, c in K1_FORMATS],
+    "mc": [f"(hs, vs)=({hs}, {vs}) depths 8-14" for hs, vs in K2_FORMATS],
+    "paint": ["4:2:0-like planes int32/int16",
+              "4:2:2 and 4:4:4 plane shapes int32/int16, depth-14 values"],
+    "filter": ["4:2:0 depths 8 and 10"] + [
+        f"{CFMT[c]} depth {bd} {H}x{W}" for H, W, bd, c in K4_FORMATS],
+}
 
 
 def check_k4(rng, dev):
@@ -682,11 +810,18 @@ def time_kernels(data):
     return out, errs
 
 
-# the other bench streams' shapes, which the main path meets only in the
-# pipeline phase: 832x480 (chroma rows 416 samples wide, a new K4 tensor-map
-# pitch) and 3840x2160 (K1's largest wavefront, K2's and K4's largest
-# grids).  The SHVC base layer is 1920x1080, the clip's own shape.
-CLIP_CHECK_STREAMS = ("bqmall_480p", "4k_main")
+# the other bench streams' shapes and formats, which the main path meets
+# only in the pipeline phase: 832x480 (chroma rows 416 samples wide, a new
+# K4 tensor-map pitch), 3840x2160 (K1's largest wavefront, K2's and K4's
+# largest grids), Main-10 1080p (every kernel at depth 10), 4:2:2 (K1 on
+# stacked chroma blocks, K2's (1, 0) phases, K4's 32x64 chroma tiles) and
+# 4:4:4 (c444, K2's (0, 0) phases, 64x64 chroma tiles).  The SHVC base
+# layer is 1920x1080, the clip's own shape.
+CLIP_CHECK_STREAMS = ("bqmall_480p", "4k_main", "1080p_main10", "rext_422",
+                      "rext_444")
+# streams whose first frames' kernel device times are profiled besides
+# the clip's
+PROFILE_STREAMS = ("1080p_main10", "rext_422", "rext_444")
 
 
 def check_stream_calls(name):
@@ -702,48 +837,61 @@ def check_stream_calls(name):
 
 
 def profile_frames(data):
-    """Device time of K1-K4 from torch.profiler: the decode of the I
-    frame alone, and of the I and first P frames (the P frame is the
-    difference).  Each decode is checked like the main path's, and a
-    profiler that fails fails the phase.  -> {kernel: {"i_frame": ms,
-    "p_frame": ms}}, a value None where the trace holds no device time
-    for the kernel (an I frame runs no K2)."""
+    """Device time of K1-K4 from torch.profiler over one decode of the I
+    frame and the first P frame (checked like the main path's): each
+    kernel's device intervals in the trace, the I frame's being those that
+    end by the end of the first K4 kernel (a frame's last; every kernel
+    runs on one stream), the P frame's the rest.  A profiler that fails,
+    or a trace without both frames' K4, fails the phase.  -> {kernel:
+    {"i_frame": ms, "p_frame": ms}}, a value None where the frame ran no
+    such kernel (an I frame runs no K2)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = {"intra": ("owner_kernel", "wavefront_kernel"),
              "mc": ("mc_pass_kernel",),
              "paint": ("paint_pass_kernel",),
              "filter": ("filter_frame_kernel",)}
-    tot = []
-    for n in (1, 2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            decode_checked(data, n)
-            torch.cuda.synchronize()
-        t = dict.fromkeys(names, 0.0)
-        for e in prof.key_averages():
-            us = (getattr(e, "self_device_time_total", 0) or
-                  getattr(e, "self_cuda_time_total", 0))
-            for k, pats in names.items():
-                if any(pat in e.key for pat in pats):
-                    t[k] += us / 1e3
-        tot.append(t)
-    return {k: {"i_frame": tot[0][k] or None,
-                "p_frame": (tot[1][k] - tot[0][k]) if tot[1][k] else None}
-            for k in names}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_checked(data, 2)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end, k)
+             for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             for k, pats in names.items() if any(p in e.name for p in pats)]
+    ends = sorted(e for _s, e, k in spans if k == "filter")
+    if len(ends) != 2:
+        raise AssertionError(f"profile: {len(ends)} K4 kernels in the "
+                             f"trace of two frames")
+    t = {k: [0.0, 0.0] for k in names}
+    for s_, e, k in spans:
+        t[k][0 if e <= ends[0] else 1] += (e - s_) / 1e3
+    return {k: {"i_frame": v[0] or None, "p_frame": v[1] or None}
+            for k, v in t.items()}
 
 
 # ---------------------------------------------------------------------------
 # phase 6: the pipelined decoder on the four 8-bit 4:2:0 bench streams
 # ---------------------------------------------------------------------------
 
-# (name, frames, luma shape): every frame of each stream, the SHVC stream's
-# base layer only
-PIPELINE_STREAMS = (("1080p_main", 24, (1080, 1920)),
-                    ("bqmall_480p", 16, (480, 832)),
-                    ("4k_main", 10, (2160, 3840)),
-                    ("shvc_4k60", 4, (1080, 1920)))
+def _shapes(h, w, cfmt=1):
+    hs, vs = (1 if cfmt in (1, 2) else 0), (1 if cfmt == 1 else 0)
+    return [(h, w), (h >> vs, w >> hs), (h >> vs, w >> hs)]
+
+
+# (name, frames, plane shapes): every frame of each stream, the SHVC
+# stream's base layer only
+PIPELINE_STREAMS = (("1080p_main", 24, _shapes(1080, 1920)),
+                    ("bqmall_480p", 16, _shapes(480, 832)),
+                    ("4k_main", 10, _shapes(2160, 3840)),
+                    ("shvc_4k60", 4, _shapes(1080, 1920)),
+                    ("1080p_main10", 20, _shapes(1080, 1920)),
+                    ("rext_422", 8, _shapes(480, 832, 2)),
+                    ("rext_444", 8, _shapes(480, 832, 3)))
 PIPELINE_RUNS = 2              # each stream decoded twice
+# streams whose first P frame's dispatch runs under sync debug "error": the
+# 8-bit wire, the packed 10-bit wire, 4:4:4 shapes
+SYNC_STREAMS = ("1080p_main", "1080p_main10", "rext_444")
 PR6_SPLIT = {"prepare_s": 0.485, "enqueue_s": 1.006}   # PERF.md section 5
 
 
@@ -755,7 +903,7 @@ def bench_stream(name):
         return f.read()
 
 
-def decode_pipelined(data, n_frames, shape):
+def decode_pipelined(data, n_frames, shapes):
     """The whole stream through PipelinedDecoder() (the card by default),
     every frame fetched to the host; raises unless n_frames frames of the
     expected shape came out with every plane's MD5 matching.  -> (wall
@@ -793,16 +941,14 @@ def decode_pipelined(data, n_frames, shape):
         raise AssertionError(
             f"pipelined decode: {len(frames)} frames of {n_frames}, md5_ok="
             f"{dec.md5_ok} md5_fail={dec.md5_fail}")
-    half = (shape[0] // 2, shape[1] // 2)
-    want = [shape, half, half]
     for f in frames:
-        if [tuple(p.shape) for p in f.host_planes()] != want:
+        if [tuple(p.shape) for p in f.host_planes()] != shapes:
             raise AssertionError("pipelined decode: unexpected plane shapes")
     return wall, device.launches(), device.h2d_copies(), dec, busy
 
 
 def check_no_sync(data):
-    """The dispatch of the 1080p clip's first P frame (prepare_host, the
+    """The dispatch of a stream's first P frame (prepare_host, the
     upload, frame_step and copy_to_host_async: Decoder._reconstruct) on
     the backend's compute stream, under
     torch.cuda.set_sync_debug_mode("error"): any call that waits for the
@@ -879,6 +1025,93 @@ def idle_share(data, skip=4):
                 busy_ms=busy / 1e3, idle_share=1 - busy / window)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: two-layer SHVC on the card, and X3, its inter-layer upsample
+# ---------------------------------------------------------------------------
+
+SHVC_RUNS = 2
+SHVC_PICTURES = 4              # a layer
+SHVC_EL = _shapes(2160, 3840)
+
+
+def decode_shvc(data):
+    """Both layers of the SHVC bench stream through the port's
+    ShvcDecoder() (each layer on its own CudaBackend on the card, X3 on
+    the device), every EL frame fetched to the host; raises unless both
+    layers gave SHVC_PICTURES frames of the expected shapes with every
+    plane's MD5 matching and every inter-layer reference was upsampled on
+    the card.  -> (wall seconds, launches per kernel, X3 calls, H2D
+    copies, the decoder, the layers' outputs).  The counters are set to 0
+    once the decoder is built."""
+    import torch
+    from openhevc_tpu_torch.decoder.shvc import ShvcDecoder
+    from openhevc_tpu_torch.torch_backend import device
+    from openhevc_tpu_torch.torch_backend.upsample import CudaUpsampler
+    dec = ShvcDecoder(check_md5=True)
+    torch.cuda.synchronize()
+    device.reset_launches()
+    where, calls = set(), []
+    inner = CudaUpsampler.upsample_frame
+
+    def seen(self, planes, *a, **kw):
+        out = inner(self, planes, *a, **kw)
+        where.update(p.device.type for p in list(planes) + out)
+        calls.append(1)
+        return out
+    CudaUpsampler.upsample_frame = seen
+    t = time.time()
+    try:
+        outs = dec.decode_stream(data)
+        for f in outs[1]:
+            f.host_planes()
+        torch.cuda.synchronize()
+    finally:
+        CudaUpsampler.upsample_frame = inner
+    wall = time.time() - t
+    n = SHVC_PICTURES
+    if ([len(o) for o in outs] != [n, n] or dec.md5_ok != 6 * n
+            or dec.md5_fail):
+        raise AssertionError(
+            f"SHVC decode: {[len(o) for o in outs]} frames, md5_ok="
+            f"{dec.md5_ok} md5_fail={dec.md5_fail}")
+    for lid, want in ((0, _shapes(1080, 1920)), (1, SHVC_EL)):
+        for f in outs[lid]:
+            if [tuple(p.shape) for p in f.host_planes()] != want:
+                raise AssertionError(f"SHVC layer {lid}: unexpected shapes")
+    if not calls or where != {"cuda"}:
+        raise AssertionError(f"SHVC: {len(calls)} inter-layer upsamples, "
+                             f"on {sorted(where)}")
+    return wall, device.launches(), len(calls), device.h2d_copies(), dec, outs
+
+
+def time_x3(bl_planes):
+    """X3 on one picture of the SHVC stream (1920x1080 base layer to the
+    3840x2160 enhancement layer, 4:2:0, depth 8): held against the NumPy
+    model (model/upsample.py, the reference's arithmetic) at tolerance 0,
+    then timed by CUDA events; its bound is the bytes it must move (the
+    int32 base planes read once, the EL planes written once) against its
+    operations (a multiply and an add a tap, both passes)."""
+    from openhevc_tpu_torch.model.upsample import upsample_frame
+    from openhevc_tpu_torch.torch_backend.upsample import CudaUpsampler
+    up = CudaUpsampler()
+    h_el, w_el = SHVC_EL[0]
+    got = up.upsample_frame(bl_planes, w_el, h_el, bit_depth=8)
+    want = upsample_frame([p.cpu().numpy() for p in bl_planes], w_el, h_el,
+                          bit_depth=8)
+    err = max(int(np.abs(g.cpu().numpy().astype(np.int64) - w).max())
+              for g, w in zip(got, want))
+    ms = cuda_ms(lambda: up.upsample_frame(bl_planes, w_el, h_el,
+                                           bit_depth=8))
+    byts = sum(p.numel() * 4 for p in bl_planes) + \
+        sum(g.numel() * 4 for g in got)
+    ops = 0
+    for c, (p, g) in enumerate(zip(bl_planes, got)):
+        taps = 8 if c == 0 else 4
+        ops += 2 * taps * (p.shape[0] * g.shape[1] + g.numel())
+    return dict(max_abs_err=err, ms=ms, bytes=byts, ops=ops,
+                **bound(dict(bytes=byts, ops=ops)))
+
+
 KERNELS = (
     ("intra", "K1 intra", "openhevc_tpu_torch/csrc/intra.cu",
      "openhevc_tpu/tpu/intra_pallas.py:341"),
@@ -949,6 +1182,15 @@ def main():
     torch.cuda.synchronize()
     print("kernels " + " ".join(f"{k}={v}" for k, v in errs.items()),
           flush=True)
+    fmt_errs = {"intra": check_k1_formats(rng, dev),
+                "mc": check_k2_formats(rng, dev),
+                "paint": check_k3_formats(rng, dev),
+                "filter": check_k4_formats(rng, dev)}
+    torch.cuda.synchronize()
+    for k, v in fmt_errs.items():
+        print(f"kernels_formats {k}={v} variants: "
+              + "; ".join(SMALL_VARIANTS[k]), flush=True)
+    errs = {k: max(v, fmt_errs[k]) for k, v in errs.items()}
     bad = {k: v for k, v in errs.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with plain versions: {bad}")
@@ -987,6 +1229,7 @@ def main():
     if (counts["intra"] != FRAMES or counts["filter"] != FRAMES
             or counts["mc"] > FRAMES - 1 or counts["paint"] > 2 * FRAMES - 1):
         raise AssertionError(f"launch counts off: {counts}")
+    path_launches = {"serial 1080p_main": counts}
     phase("decode", t)
 
     # 5. kernels against plain versions on the clip's inputs, then times
@@ -1012,6 +1255,13 @@ def main():
         print(f"profile {key} device_ms " + " ".join(
             f"{f}={'not measured' if v is None else f'{v:.4f}'}"
             for f, v in frames_ms.items()), flush=True)
+    prof_streams = {name: profile_frames(bench_stream(name))
+                    for name in PROFILE_STREAMS}
+    for name, sp in prof_streams.items():
+        for key, frames_ms in sp.items():
+            print(f"profile stream={name} {key} device_ms " + " ".join(
+                f"{f}={'not measured' if v is None else f'{v:.4f}'}"
+                for f, v in frames_ms.items()), flush=True)
     rows = []
     for key, name, src, replaces in KERNELS:
         m = times[key]
@@ -1045,23 +1295,31 @@ def main():
                       f"bound_ms={p['bound_ms']:.5f} "
                       f"library_ms={p['library_ms']:.4f}", flush=True)
         row["profiler_device_ms"] = prof[key]
+        row["profiler_device_ms_streams"] = {
+            name: sp[key] for name, sp in prof_streams.items()}
+        row["variants"] = SMALL_VARIANTS[key] + [
+            f"the I and first P frames' calls of {name}"
+            for name in per_stream]
         rows.append(row)
     phase("timing", t)
 
-    # 6. the pipelined decoder: the four 8-bit 4:2:0 bench streams, each
-    # decoded twice through the kernels only, one upload a frame; the
-    # dispatch of a P frame without a host wait; the device's idle share
+    # 6. the pipelined decoder: the bench streams (the SHVC stream's base
+    # layer), each decoded twice through the kernels only, one upload a
+    # frame; the dispatch of a P frame without a host wait; the device's
+    # idle share
     t = time.time()
     fps = {}
     with refuse_plain():
-        poc = check_no_sync(data)
-        print(f"pipeline sync_debug=error over the dispatch of P frame POC "
-              f"{poc}: no host wait", flush=True)
-        for name, n_frames, shape in PIPELINE_STREAMS:
+        for name in SYNC_STREAMS:
+            poc = check_no_sync(data if name == "1080p_main"
+                                else bench_stream(name))
+            print(f"pipeline sync_debug=error over the dispatch of "
+                  f"{name}'s P frame POC {poc}: no host wait", flush=True)
+        for name, n_frames, shapes in PIPELINE_STREAMS:
             sdata = data if name == "1080p_main" else bench_stream(name)
             for run in range(PIPELINE_RUNS):
                 pwall, pcounts, h2d, pdec, busy = decode_pipelined(
-                    sdata, n_frames, shape)
+                    sdata, n_frames, shapes)
                 fps.setdefault(name, []).append(n_frames / pwall)
                 print(f"pipeline {name} run={run + 1} frames={n_frames} "
                       f"md5_ok={pdec.md5_ok} md5_fail={pdec.md5_fail} "
@@ -1071,10 +1329,12 @@ def main():
                           f"{k}={v:.3f}" for k, v in busy.items()),
                       flush=True)
                 if h2d != n_frames or pcounts["intra"] != n_frames or \
-                        pcounts["filter"] != n_frames:
+                        pcounts["filter"] != n_frames or \
+                        min(pcounts.values()) <= 0:
                     raise AssertionError(
                         f"pipeline {name}: {h2d} uploads and launches "
                         f"{pcounts} for {n_frames} frames")
+                path_launches[f"pipeline {name} run {run + 1}"] = pcounts
         print("pipeline 1080p_main host split (serial decode) " + " ".join(
             f"{k}={split[k]:.3f} (PR 6: {v})" for k, v in PR6_SPLIT.items())
             + f"; serial fps={FRAMES / wall:.3f}, pipelined fps="
@@ -1084,6 +1344,33 @@ def main():
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in idle.items()), flush=True)
     phase("pipeline", t)
+
+    # 7. two-layer SHVC through ShvcDecoder(), twice; X3 held and timed
+    t = time.time()
+    sdata = bench_stream("shvc_4k60")
+    with refuse_plain():
+        for run in range(SHVC_RUNS):
+            swall, scounts, x3n, h2d, sdec, outs = decode_shvc(sdata)
+            n = 2 * SHVC_PICTURES
+            print(f"shvc shvc_4k60 run={run + 1} frames={n} (both layers) "
+                  f"md5_ok={sdec.md5_ok} md5_fail={sdec.md5_fail} "
+                  f"wall_s={swall:.3f} fps_el={SHVC_PICTURES / swall:.3f} "
+                  f"launches={json.dumps(scounts)} x3_calls={x3n} "
+                  f"h2d={h2d}", flush=True)
+            if min(scounts.values()) <= 0:
+                raise AssertionError(f"SHVC: launches {scounts}")
+            path_launches[f"shvc shvc_4k60 run {run + 1}"] = scounts
+    x3 = time_x3(list(outs[0][0].planes))
+    print(f"x3 upsample 1920x1080 -> 3840x2160 4:2:0: max_abs_err="
+          f"{x3['max_abs_err']} ms={x3['ms']:.4f} "
+          f"bound_ms={x3['bound_ms']:.5f} ({x3['bound_by']}, "
+          f"{x3['bytes']} bytes)", flush=True)
+    if x3["max_abs_err"] != 0:
+        raise AssertionError("X3 disagrees with the NumPy model")
+    phase("shvc", t)
+    for key, row in zip((k[0] for k in KERNELS), rows):
+        row["launches_by_path"] = {p: c[key]
+                                   for p, c in path_launches.items()}
     phase("total", T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)

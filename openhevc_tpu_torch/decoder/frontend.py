@@ -196,8 +196,15 @@ class Frontend:
                 raise ValueError("BL reference frame does not exist")
             poc = bl.poc
             if sh.inter_layer_pred_enabled and self.dpb is not None:
-                raise NotImplementedError(
-                    "SHVC inter-layer prediction is not ported yet")
+                from .shvc import make_il_ref
+                il = make_il_ref(bl, sps, nalmod.is_irap(nal.type),
+                                 nb_list=2 if sh.slice_type == B_SLICE else 1,
+                                 el_dpb=self.dpb,
+                                 phase_align=vps.ext.phase_align
+                                 if vps and vps.ext else 0)
+                il.poc = poc
+                self.dpb.frames[poc] = il
+                il_pocs = (poc,)
 
         # random-access gating (hevc.c:3375-3397): after a CRA/BLA entry
         # point, RASL pictures reference pre-entry frames and must be skipped

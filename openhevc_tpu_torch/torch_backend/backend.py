@@ -137,8 +137,8 @@ class CudaBackend:
                 "(Decoder(use_native=True))")
         if plan.scaling is not None:
             raise NotImplementedError("scaling lists")
-        if cfmt != 1 or bd != 8:
-            raise NotImplementedError("only 8-bit 4:2:0 is ported")
+        if cfmt not in (1, 2, 3) or not 8 <= bd <= 14:
+            raise NotImplementedError("monochrome, or a depth outside 8-14")
         if len(soa["pcm"]):
             raise NotImplementedError("PCM base canvas")
         if plan.deblock_beta_map is not None:
@@ -240,6 +240,16 @@ class CudaBackend:
             lv_specs.append((key, n_rows, tgt))
             resid_keys.append((c, n, tgt))
 
+        # ---- cross-component alpha maps (RExt 4:4:4) ----
+        has_cc = False
+        if cfmt == 3:
+            amaps = plan_soa.cc_alpha_maps(soa["resid"], plan.height,
+                                           plan.width)
+            for c in (1, 2):
+                if amaps[c - 1] is not None:
+                    add8(("ccmap", c), amaps[c - 1])
+                    has_cc = True
+
         # ---- deblocking maps ----
         deblock_on = not plan.deblock_disable
         ph = -plan.height % 16
@@ -291,7 +301,7 @@ class CudaBackend:
                     sao_on=sao_on, beta_off=plan.beta_offset,
                     tc_off=plan.tc_offset, cb_off=plan.cb_qp_offset,
                     cr_off=plan.cr_qp_offset, log2_ctb=plan.log2_ctb_size,
-                    ipal=ipal)
+                    ipal=ipal, has_cc=has_cc)
         host = self._write_host(out, lv_specs, soa["resid"], plan.raw_levels)
         prof["layout"] = host.layout
         return (plan, host, prof, list(ref_pocs))

@@ -1,13 +1,15 @@
 """One frame's reconstruction on the device, through the four kernels.
 
-Port of ``openhevc_tpu/tpu/frame_step.py::frame_step`` for the main path
-(8-bit 4:2:0, unweighted prediction, flat dequant): MC through one K2 pass
-and the unweighted uni/bi combine, painted by one K3 pass; X1
-dequant+IDCT and the residual canvas painted by a second K3 pass; intra
-through K1; deblocking + SAO of all three planes through one K4 launch;
-the raw 8-bit output wire.  Everything runs on the current stream and
-nothing waits for the device.  Everything else the reference handles
-raises NotImplementedError (see ROADMAP.md).
+Port of ``openhevc_tpu/tpu/frame_step.py::frame_step`` for depths 8 to 14
+in 4:2:0, 4:2:2 and 4:4:4 with unweighted prediction and flat dequant: MC
+through one K2 pass and the unweighted uni/bi combine, painted by one K3
+pass; X1 dequant+IDCT and the residual canvas painted by a second K3 pass,
+then the cross-component mix (RExt 4:4:4); intra through K1; deblocking +
+SAO of all three planes through one K4 launch; the output wire (raw 8-bit,
+10- and 12-bit packed, 16-bit otherwise).  Everything runs on the current
+stream and nothing waits for the device.  What the reference handles
+beyond that (weighted prediction, scaling lists, PCM, per-CTB deblocking
+maps) raises NotImplementedError in prepare_host (see ROADMAP.md).
 """
 
 import functools
@@ -35,22 +37,23 @@ def frame_step(refs, arrays, prof):
     """refs: [3 stacked (R, H, W) int32 reference tensors] or None;
     arrays: frame_arrays() dict; prof: the static profile from
     prepare_host.
-    -> (Y, U, V int32 planes, uint8 wire, K1's errors: an
-    intra.IntraErrors, or None where K1 did not run on the card)."""
+    -> (Y, U, V int32 planes, the output wire (uint8, or int16 samples:
+    output_wire), K1's errors: an intra.IntraErrors, or None where K1 did
+    not run on the card)."""
     bd, cfmt, H, W = prof["bd"], prof["cfmt"], prof["H"], prof["W"]
-    if bd != 8 or cfmt != 1:
-        raise NotImplementedError("only 8-bit 4:2:0 is ported")
     dev = arrays[("map", "qp")].device
-    hs = vs = 1
+    hs = 1 if cfmt in (1, 2) else 0
+    vs = 1 if cfmt == 1 else 0
     maxv = (1 << bd) - 1
     shapes = [(H, W), (H >> vs, W >> hs), (H >> vs, W >> hs)]
     planes = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
 
     # ---- motion compensation: one K2 pass over the compacted work batches
     # of every tile size and plane, the unweighted put_hevc_qpel_{uni,bi}
-    # combine, one K3 pass ----
-    off_u = 1 << (14 - bd - 1)
-    off_b = 1 << (15 - bd - 1)
+    # combine, one K3 pass; the rounding offsets pin to 0 at depth 14, as
+    # in the reference's BIT_DEPTH 14 template ----
+    off_u = (1 << (14 - bd - 1)) if bd < 14 else 0
+    off_b = (1 << (15 - bd - 1)) if bd < 14 else 0
     batches = [{f: arrays[("inter", w, h, f)]
                 for f in ("xs", "ys", "pf", "valid", "i0", "i1", "wxs", "wys",
                           "wsel", "wmvx", "wmvy")}
@@ -90,6 +93,14 @@ def frame_step(refs, arrays, prof):
                          d["xs"], d["ys"], d["valid"]))
     paint_groups_(res_pass)
     rcanvas = [r.to(torch.int32) for r in rc16]
+    # cross-component prediction (RExt 4:4:4): the scaled luma residual
+    # joins each chroma canvas in its flagged TUs, with int16 wraparound
+    if prof["has_cc"]:
+        for c in (1, 2):
+            amap = arrays.get(("ccmap", c))
+            if amap is not None:
+                mixed = rcanvas[c] + ((amap * rcanvas[0]) >> 3)
+                rcanvas[c] = ((mixed + 0x8000) & 0xFFFF) - 0x8000
     # inter pixels become final here; intra pixels are overwritten by K1
     planes = [torch.clamp(planes[c] + rcanvas[c], 0, maxv) for c in range(3)]
 
@@ -119,7 +130,7 @@ def frame_step(refs, arrays, prof):
                 grids.append(build_chroma_grids(
                     vbs, hbs, qp_map, off, prof["tc_off"], prof["tc_off"],
                     nfm, qpc_table(dev), bd, Hp >> vs, Wp >> hs, 1 << hs,
-                    1 << vs, four20=True))
+                    1 << vs, four20=(cfmt == 1)))
         if sao_on:
             sao = [tuple(arrays[("sao", c, f)]
                          for f in ("tm", "bm", "em", "om")) for c in range(3)]
@@ -128,5 +139,31 @@ def frame_step(refs, arrays, prof):
                                deblock_on=deblock_on, sao_on=sao_on,
                                ctb=1 << (prof["log2_ctb"] or 6), hs=hs, vs=vs)
 
-    wire = torch.cat([p.to(torch.uint8).reshape(-1) for p in planes])
-    return tuple(planes) + (wire, errors)
+    return tuple(planes) + (output_wire(planes, bd), errors)
+
+
+def output_wire(planes, bd):
+    """The planes as one flat buffer for the host (refs.Frame.host_planes
+    reads it back): raw uint8 at depth 8; at depth 10, 4 samples in 5
+    bytes; at depth 12, 2 samples in 3 bytes (where every plane's size
+    divides); 16-bit samples otherwise, carried as int16 (every sample is
+    below 2^14) and read back as uint16 (wire.Wire).  The packing runs in
+    int64: the 10-bit word's top bits would set int32's sign."""
+    if bd == 8:
+        return torch.cat([p.to(torch.uint8).reshape(-1) for p in planes])
+    if bd == 10 and all(p.numel() % 4 == 0 for p in planes):
+        def pack(p):
+            s = p.reshape(-1, 4).long()
+            lo = (s[:, 0] | (s[:, 1] << 10) | (s[:, 2] << 20) |
+                  ((s[:, 3] & 3) << 30))
+            return [lo & 255, (lo >> 8) & 255, (lo >> 16) & 255,
+                    (lo >> 24) & 255, s[:, 3] >> 2]
+    elif bd == 12 and all(p.numel() % 2 == 0 for p in planes):
+        def pack(p):
+            s = p.reshape(-1, 2).long()
+            lo = s[:, 0] | (s[:, 1] << 12)
+            return [lo & 255, (lo >> 8) & 255, (lo >> 16) & 255]
+    else:
+        return torch.cat([p.to(torch.int16).reshape(-1) for p in planes])
+    return torch.cat([torch.stack(pack(p), 1).to(torch.uint8).reshape(-1)
+                      for p in planes])

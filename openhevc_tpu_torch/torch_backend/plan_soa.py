@@ -192,6 +192,23 @@ def resid_fields(resid, chroma_format_idc):
     return out
 
 
+def cc_alpha_maps(resid, height, width):
+    """RExt 4:4:4 cross-component alpha maps per chroma plane (or None)."""
+    alpha = ((resid[:, 7] >> 8) & 63) - 16
+    maps = [None, None]
+    for c in (1, 2):
+        m = (resid[:, 0] == c) & (alpha != 0)
+        if not m.any():
+            continue
+        amap = np.zeros((height, width), np.int32)
+        for x, y, l2, a in zip(resid[m, 1], resid[m, 2], resid[m, 3],
+                               alpha[m]):
+            nn = 1 << l2
+            amap[y:y + nn, x:x + nn] = a
+        maps[c - 1] = amap
+    return maps
+
+
 def intra_meta_bands(intra, c_idx, bands, chroma_444, smoothing_off=False):
     """Vectorized intra_pallas.build_meta + band split.
 

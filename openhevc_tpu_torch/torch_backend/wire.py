@@ -1,8 +1,11 @@
 """A frame's output wire on its way to the host.
 
-``frame_step`` ends in a flat uint8 wire of the three planes on the device.
-``Wire`` carries it to the caller with two methods, the ones the decoder's
-``Frame.host_planes`` and ``Decoder._reconstruct`` look for:
+``frame_step`` ends in a flat wire of the three planes on the device: uint8
+(depth 8, and the packed 10- and 12-bit wires), or int16 samples, which
+``cpu()`` hands out as uint16 (the reference's wire type, and the one
+``Frame.host_planes`` reads).  ``Wire`` carries it to the caller with two
+methods, the ones the decoder's ``Frame.host_planes`` and
+``Decoder._reconstruct`` look for:
 
 - ``copy_to_host_async()`` makes the D2H stream wait for the wire (an event
   recorded on the stream that made it) and starts a ``non_blocking`` copy
@@ -61,4 +64,6 @@ class Wire:
         if self._copied is not None:
             self._copied.synchronize()
         self.check()
+        if self._host.dtype == torch.int16:
+            return self._host.view(torch.uint16)
         return self._host
