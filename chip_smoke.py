@@ -22,7 +22,8 @@ Drives ``openhevc_tpu_torch`` only (nothing of JAX or ``openhevc_tpu``):
    and X3, the SHVC inter-layer upsample kernel, against its gather form
    on whole frames (``kernels_x3`` line): depths 8-14, 4:2:0, 4:2:2 and
    4:4:4, ratios 2x, 1.5x and one that is neither, EL sizes that are no
-   multiple of its tile, random, all-maximum and alternating samples;
+   multiple of its tile, base rows TMA cannot map (its cp.async path),
+   random, all-maximum and alternating samples;
 4. decode: the committed 1080p Main clip through ``Decoder(check_md5=True)``
    (the card by default); every decoded-picture-hash SEI must match, every
    kernel must have launched, K1 and K4 once a frame, K2 at most once and
@@ -52,9 +53,10 @@ Drives ``openhevc_tpu_torch`` only (nothing of JAX or ``openhevc_tpu``):
    pictures each) twice through ``ShvcDecoder()``, each layer on its own
    backend on the card and X3, the inter-layer upsample, through its
    kernel with its gather form refused: every MD5 of both layers, every
-   kernel launched, X3 once a plane; X3 held against its gather form, the
-   NumPy model and the band-matrix form (``upsample_plane_mm``) at
-   tolerance 0 on one picture and timed beside all three and its bound;
+   kernel launched, X3 once a picture; X3 held against its gather form,
+   the NumPy model and the band-matrix form (``upsample_plane_mm``) at
+   tolerance 0 on one picture and timed beside all three and its bound,
+   its device time also with the base planes out of L2;
 8. variants: K4 on per-CTB map grids, K1-K4 on the I, P and B frames of
    the port's variant stream (from both front-ends' plans), that stream
    twice through ``PipelinedDecoder()`` and the encrypted stream twice
@@ -613,9 +615,12 @@ def check_k4(rng, dev):
 
 
 # X3, the SHVC inter-layer upsample: (base-layer luma W, H) -> (EL W, H);
-# no EL size is a multiple of the kernel's 64x32 tile
+# no EL size is a multiple of the kernel's 64x64 tile; the last case's base
+# rows are no multiple of 16 bytes, so TMA cannot map them (the kernel's
+# cp.async path) and its EL rows start off 16-byte alignment
 X3_RATIOS = (("2x", (136, 72), (272, 144)), ("1.5x", (184, 104), (276, 156)),
-             ("arbitrary", (200, 120), (344, 216)))
+             ("arbitrary", (200, 120), (344, 216)),
+             ("1.5x unaligned", (90, 50), (135, 75)))
 X3_DEPTHS = (8, 10, 12, 14)
 X3_INPUTS = ("random", "max", "alternating 0/max")
 
@@ -1224,7 +1229,7 @@ def decode_shvc(data):
     the device), every EL frame fetched to the host; raises unless both
     layers gave SHVC_PICTURES frames of the expected shapes with every
     plane's MD5 matching and every inter-layer reference was upsampled on
-    the card by X3's kernel, one launch a plane.  -> (wall seconds,
+    the card by X3's kernel, one launch a picture.  -> (wall seconds,
     launches per kernel, X3 calls, X3 launches, H2D copies, the decoder,
     the layers' outputs).  The counters are set to 0 once the decoder is
     built."""
@@ -1264,20 +1269,20 @@ def decode_shvc(data):
             if [tuple(p.shape) for p in f.host_planes()] != want:
                 raise AssertionError(f"SHVC layer {lid}: unexpected shapes")
     x3n = device.x3_launches()
-    if not calls or where != {"cuda"} or x3n != 3 * len(calls):
+    if not calls or where != {"cuda"} or x3n != len(calls):
         raise AssertionError(f"SHVC: {len(calls)} inter-layer upsamples, "
                              f"on {sorted(where)}, {x3n} X3 launches")
     return (wall, device.launches(), len(calls), x3n, device.h2d_copies(),
             dec, outs)
 
 
-def x3_device_ms(fn, reps=5):
-    """Device time of X3's kernels for one picture (torch.profiler): fn
-    (one picture's three planes) once to warm up, then reps times under
-    the profiler; the mean luma (8-tap) kernel plus twice the mean chroma
-    (4-tap) kernel.  A trace may miss a kernel at its start, so each kind
-    needs all but one of its launches; fewer, or a profiler that fails,
-    fails the phase."""
+def x3_device_ms(fn, reps=20, before=None):
+    """Device time of X3's kernel for one picture (torch.profiler): fn
+    (one picture, one launch for its three planes) once to warm up, then
+    reps times under the profiler, each behind ``before`` when given; the
+    mean of the kernel's spans.  A trace may miss kernels at its start (3
+    of 5 once, in the middle of this script), so it needs half of the
+    launches; fewer, or a profiler that fails, fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1285,19 +1290,20 @@ def x3_device_ms(fn, reps=5):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
-    spans = {8: [], 4: []}
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and \
-                "upsample_kernel" in e.name:
-            taps = 8 if "<8>" in e.name or "ILi8E" in e.name else 4
-            spans[taps].append(e.time_range.end - e.time_range.start)
-    if len(spans[8]) < reps - 1 or len(spans[4]) < 2 * reps - 1:
-        raise AssertionError(f"X3 profile: {len(spans[8])} luma and "
-                             f"{len(spans[4])} chroma kernels in the trace "
-                             f"of {reps} pictures")
-    return (np.mean(spans[8]) + 2 * np.mean(spans[4])) / 1e3
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             and "upsample_frame_kernel" in e.name]
+    if len(spans) < reps // 2:
+        raise AssertionError(f"X3 profile: {len(spans)} kernels in the "
+                             f"trace of {reps} pictures")
+    return np.mean(spans) / 1e3
+
+
+L2_FLUSH_BYTES = 128 << 20     # read before a cold picture: > the 50 MB L2
 
 
 def time_x3(bl_planes):
@@ -1306,9 +1312,13 @@ def time_x3(bl_planes):
     its plain version (the gather form), the NumPy model (model/upsample.py,
     the reference's arithmetic) and the band-matrix form
     (upsample_plane_mm, the library yardstick), tolerance 0; then each
-    timed by CUDA events.  Its bound is the larger of the bytes it must
-    move (the int32 base planes read once, the EL planes written once) and
-    its operations (a multiply and an add a tap, both passes)."""
+    timed by CUDA events, and the kernel's device time by torch.profiler,
+    back to back (the base planes, 12.4 MB, fit the 50 MB L2, but each
+    picture's 49.8 MB of writes pass through it) and cold (a 128 MB read
+    before each picture: the base planes come from device memory).  Its
+    bound is the larger of the bytes it must move (the int32 base planes
+    read once, the EL planes written once) and its operations (a multiply
+    and an add a tap, both passes)."""
     import torch
     from openhevc_tpu_torch.model.upsample import UpsampleInfo, upsample_frame
     from openhevc_tpu_torch.torch_backend import upsample as x3
@@ -1340,18 +1350,28 @@ def time_x3(bl_planes):
                                              bit_depth=8))
     plain_ms = cuda_ms(lambda: x3_plain_frame(kern, bl_planes, w_el, h_el))
     library_ms = cuda_ms(library)
-    device_ms = x3_device_ms(lambda: kern.upsample_frame(
-        bl_planes, w_el, h_el, bit_depth=8))
-    byts = sum(p.numel() * 4 for p in bl_planes) + \
-        sum(g.numel() * 4 for g in got)
+    def run():
+        return kern.upsample_frame(bl_planes, w_el, h_el, bit_depth=8)
+    device_ms = x3_device_ms(run)
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                       device=bl_planes[0].device)
+    cold_ms = x3_device_ms(run, before=flush.sum)
+    del flush
+    base = sum(p.numel() * 4 for p in bl_planes)
+    byts = base + sum(g.numel() * 4 for g in got)
     ops = 0
     for c, (p, g) in enumerate(zip(bl_planes, got)):
         taps = 8 if c == 0 else 4
         ops += 2 * taps * (p.shape[0] * g.shape[1] + g.numel())
+    b = bound(dict(bytes=byts, ops=ops))
     return dict(max_abs_err=err, library_err=lib_err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
-                device_ms=device_ms, bytes=byts,
-                ops=ops, **bound(dict(bytes=byts, ops=ops)))
+                device_ms=device_ms, device_cold_ms=cold_ms,
+                gbps=byts / device_ms / 1e6, cold_gbps=byts / cold_ms / 1e6,
+                bound_share=b["bound_ms"] / device_ms,
+                cold_bound_share=b["bound_ms"] / cold_ms,
+                base_bytes=base,
+                bytes=byts, ops=ops, **b)
 
 
 # ---------------------------------------------------------------------------
@@ -1758,7 +1778,7 @@ def entry_api_shvc(path_launches):
     if len(yuv) != SHVC_PICTURES * h * w * 3 // 2:
         raise AssertionError("API SHVC: unexpected picture size")
     if not calls or where != {"cuda"} or \
-            min(counts.values()) <= 0 or x3n != 3 * len(calls):
+            min(counts.values()) <= 0 or x3n != len(calls):
         raise AssertionError(f"API SHVC: {len(calls)} inter-layer "
                              f"upsamples on {sorted(where)}, launches "
                              f"{counts}, X3 launches {x3n}")
@@ -2394,6 +2414,12 @@ KERNELS = (
 # SHVC upsample, not a pallas_call
 X3_KERNEL = ("upsample", "X3 upsample", "openhevc_tpu_torch/csrc/upsample.cu",
              "openhevc_tpu/tpu/upsample.py:61")
+X3_DESIGN = ("one launch a picture: a block per 64x64 EL tile of any plane "
+             "(8- or 4-tap path per block); the base window by one TMA load "
+             "on an mbarrier (4-byte cp.async where TMA cannot map the "
+             "plane), overlapped with the taps' loads; the horizontal sums "
+             "kept as int16 in shared memory; the vertical pass by strips "
+             "of 4 columns, each one 16-byte store")
 
 
 class refuse_plain:
@@ -2653,10 +2679,18 @@ def main():
           f"NumPy model) library_err={x3['library_err']} "
           f"ms={x3['ms']:.4f} plain_ms={x3['plain_ms']:.4f} "
           f"library_ms={x3['library_ms']:.4f} (upsample_plane_mm) "
-          f"device_ms={x3['device_ms']:.4f} (torch.profiler, a picture) "
+          f"device_ms={x3['device_ms']:.4f} (torch.profiler, a picture, "
+          f"back to back: the {x3['base_bytes']} bytes of base planes fit "
+          f"the 50 MB L2, partly resident behind the last picture's writes) "
+          f"achieved_gbps={x3['gbps']:.1f} "
+          f"bound_share={x3['bound_share']:.3f} "
+          f"device_cold_ms={x3['device_cold_ms']:.4f} (the base planes not "
+          f"in L2: a 128 MB read before each picture) "
+          f"cold_gbps={x3['cold_gbps']:.1f} "
+          f"cold_bound_share={x3['cold_bound_share']:.3f} "
           f"bound_ms={x3['bound_ms']:.5f} ({x3['bound_by']}, "
           f"{x3['bytes']} bytes, {x3['ops']} operations) "
-          f"launches={x3_main[0]} ({x3_main[1]} pictures, 3 a picture) "
+          f"launches={x3_main[0]} ({x3_main[1]} pictures, 1 a picture) "
           f"card='{card}'", flush=True)
     if x3["max_abs_err"] != 0 or x3["library_err"] != 0:
         raise AssertionError("X3 disagrees with its plain version, the "
@@ -2696,7 +2730,10 @@ def main():
         max_abs_err=max(x3_err, x3["max_abs_err"], x3["library_err"]),
         ms=x3["ms"], plain_ms=x3["plain_ms"], library_ms=x3["library_ms"],
         profiler_device_ms=x3["device_ms"],
+        profiler_device_cold_ms=x3["device_cold_ms"],
+        achieved_gbps=x3["gbps"], bound_share=x3["bound_share"],
         bound_ms=x3["bound_ms"], bound_by=x3["bound_by"],
+        design=X3_DESIGN,
         variants=X3_VARIANTS + [
             "one 1920x1080 to 3840x2160 4:2:0 picture of shvc_4k60, also "
             "against the NumPy model and upsample_plane_mm"]))

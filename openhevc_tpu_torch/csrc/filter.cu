@@ -35,7 +35,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <mutex>
+#include "tma.cuh"
 
 namespace {
 
@@ -78,10 +78,6 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 __device__ __forceinline__ int absi(int v) { return v < 0 ? -v : v; }
 __device__ __forceinline__ int signi(int v) { return (v > 0) - (v < 0); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // One edge of 4 lines.  q points at sample q0 of line 0; `along` steps
 // across the edge (taps), `line` along it.
@@ -213,33 +209,13 @@ filter_frame_kernel(const __grid_constant__ FilterFrame f) {
   const int TW = P.csx + 2 * kHalo, TH = P.csy + 2 * kHalo;
 
   // the tile and its halo: one TMA load, zeros outside the plane
-  const uint32_t b = smem_addr(&bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(b)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  const uint32_t b = ohk::smem_addr(&bar);
+  if (threadIdx.x == 0) ohk::mbar_init(b);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-        :: "r"(b), "r"(TW * TH * 4) : "memory");
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-        :: "r"(smem_addr(tile)),
-           "l"(reinterpret_cast<uint64_t>(&P.map)),
-           "r"(x0 - kHalo), "r"(y0 - kHalo), "r"(b)
-        : "memory");
-  }
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(b) : "memory");
-  }
+  if (threadIdx.x == 0)
+    ohk::tma_load_2d(ohk::smem_addr(tile), &P.map, x0 - kHalo, y0 - kHalo, b,
+                     TW * TH * 4);
+  ohk::mbar_wait(b, 0);
 
   const int maxv = (1 << f.bd) - 1;
   if (f.deblock) {
@@ -288,35 +264,6 @@ filter_frame_kernel(const __grid_constant__ FilterFrame f) {
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda);
-// looked up once, under a once flag (launches come from several threads)
-std::once_flag g_encode_once;
-EncodeTiled g_encode = nullptr;
-
-EncodeTiled encode_tiled() {
-  std::call_once(g_encode_once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      g_encode = reinterpret_cast<EncodeTiled>(p);
-  });
-  return g_encode;
-}
-
 }  // namespace
 
 extern "C" int ohk_filter_frame_size() { return (int)sizeof(FilterFrame); }
@@ -330,21 +277,15 @@ extern "C" int ohk_filter_frame(const void* frame, void* stream) {
   memcpy(&f, frame, sizeof f);
   if (f.n_planes < 1 || f.n_planes > kMaxPlanes || f.n_ctas < 1)
     return (int)cudaErrorInvalidValue;
-  EncodeTiled encode = encode_tiled();
+  ohk::EncodeTiled encode = ohk::encode_tiled();
   if (encode == nullptr) return -1;
   for (int i = 0; i < f.n_planes; ++i) {
     FilterPlane& P = f.p[i];
     if (P.csx > kMaxCtb || P.csy > kMaxCtb || (P.W * 4) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    const cuuint64_t dims[2] = {(cuuint64_t)P.W, (cuuint64_t)P.H};
-    const cuuint64_t strides[1] = {(cuuint64_t)P.W * 4};
-    const cuuint32_t box[2] = {(cuuint32_t)(P.csx + 2 * kHalo),
-                               (cuuint32_t)(P.csy + 2 * kHalo)};
-    const cuuint32_t estr[2] = {1, 1};
-    const CUresult r = encode(
-        &P.map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, (void*)P.src, dims, strides,
-        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    const CUresult r = ohk::encode_int32_2d(
+        encode, &P.map, P.src, P.H, P.W, P.csy + 2 * kHalo,
+        P.csx + 2 * kHalo);
     if (r != CUDA_SUCCESS) return -(1000 + (int)r);
   }
   filter_frame_kernel<<<f.n_ctas, kThreads, 0, (cudaStream_t)stream>>>(f);

@@ -45,9 +45,9 @@ SIGNATURES = {
     # frame (host struct; the launcher encodes its tensor maps), stream
     "ohk_filter_frame": [_P, _P],
     "ohk_filter_frame_size": [],
-    # plane (host struct, copied into the launch), stream
-    "ohk_upsample_plane": [_P, _P],
-    "ohk_upsample_plane_size": [],
+    # frame (host struct; the launcher encodes its tensor maps), stream
+    "ohk_upsample_frame": [_P, _P],
+    "ohk_upsample_frame_size": [],
 }
 
 _lib = None

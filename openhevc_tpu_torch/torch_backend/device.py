@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 KERNELS = ("intra", "mc", "paint", "filter")     # a frame's kernels
-X3 = "upsample"         # the SHVC inter-layer upsample, a plane a launch
+X3 = "upsample"         # the SHVC inter-layer upsample, a picture a launch
 H2D = "h2d"             # host-to-device copies, counted beside the kernels
 LAUNCHES = {k: 0 for k in KERNELS + (X3, H2D)}
 _LOCK = threading.Lock()

@@ -18,6 +18,8 @@ checked, in cases that mirror tests/test_shvc.py.
 
 import glob
 import os
+import re
+import struct
 
 import numpy as np
 import pytest
@@ -185,58 +187,145 @@ def _window_cases():
     return cases
 
 
+def _layouts():
+    """(c_idx, (hs, vs)): luma, and chroma in 4:2:0, 4:2:2 and 4:4:4."""
+    return ((0, (0, 0)), (1, (1, 1)), (1, (1, 0)), (1, (0, 0)))
+
+
 def test_x3_window_plan_covers_every_tap():
-    """The kernel's host-side window plan: every tap of every tile lies in
-    its tile's window, the window is no wider than the taps need, and the
-    largest window fits the kernel's shared memory, for luma and both
-    chroma layouts at every case."""
+    """The kernel's host-side tables: every tap of every TILE x TILE tile
+    lies in its tile's window, which the TMA box (at most 256 a side)
+    holds from the window's first column rounded down to a multiple of 4
+    (a 16-byte boundary, where TMA needs a box to start); the windows are
+    no wider than the taps need; the packed taps decode to the tap tables;
+    and the kernel's shared memory fits, for luma and the three chroma
+    layouts at every case."""
     up = x3.CudaUpsampler()
     for (w_bl, h_bl), (w_el, h_el), pa in _window_cases():
         info = UpsampleInfo(w_bl, h_bl, w_el, h_el, pa)
         if info.is_snr:
             continue
-        for c_idx, sub in ((0, (0, 0)), (1, (1, 1)), (1, (1, 0)),
-                           (1, (0, 0))):
+        for c_idx, sub in _layouts():
             sbl = (h_bl >> sub[1], w_bl >> sub[0])
             ix, cx, iy, cy = up.axis_plans(sbl, w_el >> sub[0],
                                            h_el >> sub[1], c_idx, info)
-            win_x, win_y, win_h, win_w = x3.kernel_windows(ix, iy)
-            assert x3.smem_bytes(win_h, win_w) <= x3.SMEM_MAX
-            for idx, win, tile, n_src in ((ix, win_x, x3.TILE_W, sbl[1]),
-                                          (iy, win_y, x3.TILE_H, sbl[0])):
-                assert win.shape == (-(-idx.shape[0] // tile), 2)
-                t = np.arange(idx.shape[0]) // tile
+            taps = ix.shape[1]
+            host, at, (tiles_y, tiles_x), (box_h, box_w) = \
+                x3.kernel_tables(ix, cx, iy, cy)
+            assert x3.smem_bytes(box_h, box_w, taps) <= x3.SMEM_MAX
+            assert box_w % 4 == 0 and max(box_h, box_w) <= x3.MAX_BOX
+            assert (tiles_y, tiles_x) == (-(-iy.shape[0] // x3.TILE),
+                                          -(-ix.shape[0] // x3.TILE))
+            xt = host[at[0]:at[1]].reshape(tiles_x * x3.TILE, taps)
+            yt = host[at[1]:at[2]].reshape(tiles_y * x3.TILE, taps)
+            c0 = host[at[2]:at[3]]
+            win_y = host[at[3]:].reshape(tiles_y, 2)
+            win_x = x3.window_plan(ix)
+            np.testing.assert_array_equal(c0, win_x[:, 0] // 4 * 4)
+            np.testing.assert_array_equal(win_y, x3.window_plan(iy))
+            need = (win_x.sum(1) - c0).max()
+            assert need <= box_w < need + 4
+            assert win_y[:, 1].max() == box_h
+            for idx, coef, tab, win, n_src, step, start in (
+                    (ix, cx, xt, win_x, sbl[1], 1, c0),
+                    (iy, cy, yt, win_y, sbl[0], x3.TILE, win_y[:, 0])):
+                t = np.arange(idx.shape[0]) // x3.TILE
                 lo, cnt = win[t, 0][:, None], win[t, 1][:, None]
                 assert (idx >= lo).all() and (idx < lo + cnt).all()
                 assert (win[:, 0] >= 0).all()
                 assert (win[:, 0] + win[:, 1] <= n_src).all()
                 for k in range(len(win)):
-                    seg = idx[k * tile:(k + 1) * tile]
+                    seg = idx[k * x3.TILE:(k + 1) * x3.TILE]
                     assert seg.min() == win[k, 0]
                     assert seg.max() == win[k, 0] + win[k, 1] - 1
+                off, c = tab[:len(idx)] >> 16, tab[:len(idx)].astype(np.int16)
+                np.testing.assert_array_equal(off, (idx - start[t][:, None])
+                                              * step)
+                np.testing.assert_array_equal(c, coef)
 
 
-def _kernel_model(src, ix, cx, iy, cy, bd):
-    """The kernel's loops in NumPy, block by block: load the tile's window
-    (window_plan) into a buffer, the horizontal pass into a second one
-    with window-relative offsets, the vertical pass from it.  Checks the
-    kernel's indexing on the CPU; its arithmetic is the gather form's."""
-    h_el, w_el = iy.shape[0], ix.shape[0]
-    win_x, win_y, win_h, win_w = x3.kernel_windows(ix, iy)
-    out = np.full((h_el, w_el), -1, np.int64)
-    for by, (r0, nr) in enumerate(win_y):
-        for bx, (c0, nc) in enumerate(win_x):
-            assert nr <= win_h and nc <= win_w
-            S = np.zeros((win_h, win_w), np.int64)
-            S[:nr, :nc] = src[r0:r0 + nr, c0:c0 + nc]
-            xs = np.arange(bx * x3.TILE_W, min((bx + 1) * x3.TILE_W, w_el))
-            M = (S[:nr][:, ix[xs] - c0] * cx[xs][None]).sum(-1)
-            M = ((M + 0x8000) & 0xFFFF) - 0x8000
-            ys = np.arange(by * x3.TILE_H, min((by + 1) * x3.TILE_H, h_el))
-            acc = (M[iy[ys] - r0] * cy[ys][:, :, None]).sum(1)
-            out[np.ix_(ys, xs)] = np.clip(
-                (acc + x3.I_OFFSET) >> x3.N_SHIFT, 0, (1 << bd) - 1)
-    return out
+# csrc/upsample.cu X3Plane's fields after its tensor map, as _PLANE packs
+# them, and X3Frame's after its planes
+PLANE_FIELDS = ("src", "out", "xtab", "ytab", "wx", "wy", "h_bl", "w_bl",
+                "h_el", "w_el", "taps", "tiles_x", "first_tile", "box_w",
+                "box_h", "tma")
+FRAME_FIELDS = ("n_planes", "n_tiles", "max_val")
+
+
+def _frame_fields(desc):
+    """pack_frame's bytes, read back as the kernel reads them."""
+    n_planes, n_tiles, max_val = x3._TAIL.unpack_from(
+        desc, x3.MAX_PLANES * x3._PLANE.size)
+    planes = [dict(zip(PLANE_FIELDS,
+                       x3._PLANE.unpack_from(desc, k * x3._PLANE.size)))
+              for k in range(n_planes)]
+    return planes, n_tiles, max_val
+
+
+def _block_tile(planes, b):
+    """The kernel's block b -> (plane, tile row, tile column)."""
+    pi = 0
+    while pi + 1 < len(planes) and b >= planes[pi + 1]["first_tile"]:
+        pi += 1
+    P = planes[pi]
+    ty, tx = divmod(b - P["first_tile"], P["tiles_x"])
+    return pi, ty, tx
+
+
+def _kernel_model(fplan, srcs, bd):
+    """The kernel's loops in NumPy, block by block, from the frame
+    descriptor and the packed tables its pointers name: the block's plane
+    and tile; the TMA box at (r0, c0), zeros beyond the plane; the
+    horizontal pass a tile column at a time, wrapped and kept as int16;
+    the vertical pass by strips of 4 columns, rows 16 apart, each sample
+    written once.  Checks the kernel's indexing on the CPU; its
+    arithmetic is the gather form's."""
+    planes, n_tiles, _ = _frame_fields(fplan.desc)
+    outs = [np.full((P["h_el"], P["w_el"]), -1, np.int64) for P in planes]
+    written = [np.zeros(o.shape, np.int64) for o in outs]
+    T_ = x3.TILE
+    for b in range(n_tiles):
+        pi, ty, tx = _block_tile(planes, b)
+        P, kp, src = planes[pi], fplan.planes[pi][4], srcs[pi]
+        tab = kp.tab.numpy()
+
+        def el(ptr):
+            return (ptr - kp.tab.data_ptr()) // 4
+        T, bw, bh = P["taps"], P["box_w"], P["box_h"]
+        c0 = tab[el(P["wx"]) + tx]
+        r0, nr = tab[el(P["wy"]) + 2 * ty:el(P["wy"]) + 2 * ty + 2]
+        assert nr <= bh
+        S = np.zeros((bh, bw), np.int64)
+        box = src[r0:r0 + bh, c0:c0 + bw]
+        S[:box.shape[0], :box.shape[1]] = box
+        xt = tab[el(P["xtab"]) + tx * T_ * T:][:T_ * T].reshape(T_, T)
+        ox, cx = xt >> 16, xt.astype(np.int16).astype(np.int64)
+        assert (c0 + ox < P["w_bl"]).all()      # never a zero of the box
+        M = (S[:nr][:, ox] * cx[None]).sum(-1)
+        M = ((M + 0x8000) & 0xFFFF) - 0x8000    # kept as int16
+        Mflat = M.ravel()
+        yt = tab[el(P["ytab"]) + ty * T_ * T:][:T_ * T].reshape(T_, T)
+        oy, cy = yt >> 16, yt.astype(np.int16).astype(np.int64)
+        for st in range(T_ // 4):
+            gx = tx * T_ + 4 * st
+            if gx >= P["w_el"]:
+                continue
+            cols = 4 * st + np.arange(4)
+            for yy in range(T_):            # rows g + 16 j of the strip
+                gy = ty * T_ + yy
+                if gy >= P["h_el"]:
+                    break
+                at = oy[yy][:, None] + cols[None, :]
+                assert (at < nr * T_).all()
+                acc = (cy[yy][:, None] * Mflat[at]).sum(0)
+                v = np.clip((acc + x3.I_OFFSET) >> x3.N_SHIFT, 0,
+                            (1 << bd) - 1)
+                n = min(4, P["w_el"] - gx)
+                outs[pi][gy, gx:gx + n] = v[:n]
+                written[pi][gy, gx:gx + n] += 1
+    for w in written:
+        assert (w == 1).all()
+    return outs
 
 
 @pytest.mark.parametrize("bd", [8, 14])
@@ -245,34 +334,166 @@ def _kernel_model(src, ix, cx, iy, cy, bd):
                                   ((80, 56), (136, 88))],    # arbitrary
                          ids=["2x", "1.5x", "arb"])
 def test_x3_kernel_tiling_model(dims, bd):
-    """The kernel's tiling and window-relative indexing, modelled on the
-    CPU, equals the gather form on EL planes that are no multiple of the
-    tile (luma and chroma, extreme inputs included)."""
+    """The kernel's tile list, windows, strips and int16 intermediate,
+    modelled on the CPU over a whole 4:2:0 picture (one launch), equal the
+    gather form on EL planes that are no multiple of the tile, extreme
+    inputs included; and so does the kernel's wrapper on CPU tensors."""
     (w_bl, h_bl), (w_el, h_el) = dims
-    info = UpsampleInfo(w_bl, h_bl, w_el, h_el)
     up = x3.CudaUpsampler()
     rng = np.random.default_rng(bd + w_el)
-    for c_idx, s in ((0, 0), (1, 1)):
-        sbl = (h_bl >> s, w_bl >> s)
-        ix, cx, iy, cy = up.axis_plans(sbl, w_el >> s, h_el >> s, c_idx,
-                                       info)
-        for kind in ("random", "max", "alt"):
-            src = _extreme_source(rng, kind, bd, sbl)
-            want = x3.upsample_plane(
-                torch.as_tensor(src), torch.as_tensor(ix),
-                torch.as_tensor(cx), torch.as_tensor(iy),
-                torch.as_tensor(cy), bit_depth=bd).numpy()
-            np.testing.assert_array_equal(
-                _kernel_model(src.astype(np.int64), ix, cx, iy, cy, bd),
-                want, err_msg=f"{c_idx} {kind}")
-            # the kernel's wrapper on a CPU tensor: its plain version
-            tabs = [torch.as_tensor(a) for a in (ix, cx, iy, cy)]
-            wins = x3.kernel_windows(ix, iy)
-            got = x3.upsample_plane_x3(
-                torch.as_tensor(src), *tabs,
-                (torch.as_tensor(wins[0]), torch.as_tensor(wins[1])) +
-                wins[2:], bit_depth=bd)
-            np.testing.assert_array_equal(got.numpy(), want)
+    shapes = [(h_bl, w_bl)] + [(h_bl // 2, w_bl // 2)] * 2
+    for kind in ("random", "max", "alt"):
+        srcs = [_extreme_source(rng, kind, bd, s) for s in shapes]
+        planes, fplan = up._planes([torch.as_tensor(p) for p in srcs],
+                                   w_el, h_el, 1, 0)
+        want = [x3.upsample_plane(p, *plan[:4], bit_depth=bd).numpy()
+                for p, plan in zip(planes, fplan.planes)]
+        got = _kernel_model(fplan, [p.astype(np.int64) for p in srcs], bd)
+        wrapped = x3.upsample_frame_x3(planes, fplan, bit_depth=bd)
+        for c in range(3):
+            np.testing.assert_array_equal(got[c], want[c],
+                                          err_msg=f"{c} {kind}")
+            np.testing.assert_array_equal(wrapped[c].numpy(), want[c])
+
+
+def test_x3_tile_list_covers_every_sample_once():
+    """The frame descriptor's blocks map one to one onto the TILE x TILE
+    tiles of every plane, luma first, whose rectangles partition each EL
+    plane: every output sample of every plane lies in exactly one block,
+    at every case in 4:2:0, 4:2:2 and 4:4:4."""
+    up = x3.CudaUpsampler()
+    for (w_bl, h_bl), (w_el, h_el), pa in _window_cases():
+        for cfmt in (1, 2, 3):
+            hs, vs = (1 if cfmt in (1, 2) else 0), (1 if cfmt == 1 else 0)
+            shapes = ((h_bl, w_bl),) + ((h_bl >> vs, w_bl >> hs),) * 2
+            fplan = up._frame(shapes, w_el, h_el, cfmt, pa,
+                              torch.device("cpu"))
+            if fplan is None:
+                assert UpsampleInfo(w_bl, h_bl, w_el, h_el, pa).is_snr
+                continue
+            planes, n_tiles, _ = _frame_fields(fplan.desc)
+            assert n_tiles == fplan.n_tiles and len(planes) == 3
+            assert [(P["h_el"], P["w_el"]) for P in planes] == [
+                (h_el, w_el)] + [(h_el >> vs, w_el >> hs)] * 2
+            assert [P["taps"] for P in planes] == [8, 4, 4]
+            seen = [set() for _ in planes]
+            for b in range(n_tiles):
+                pi, ty, tx = _block_tile(planes, b)
+                assert (ty, tx) not in seen[pi]
+                seen[pi].add((ty, tx))
+            for P, tiles in zip(planes, seen):
+                ty_n = -(-P["h_el"] // x3.TILE)
+                tx_n = -(-P["w_el"] // x3.TILE)
+                assert tiles == {(a, c) for a in range(ty_n)
+                                 for c in range(tx_n)}
+                for n, k in ((P["h_el"], ty_n), (P["w_el"], tx_n)):
+                    cover = np.concatenate([
+                        np.arange(t * x3.TILE, min(n, (t + 1) * x3.TILE))
+                        for t in range(k)])
+                    np.testing.assert_array_equal(cover, np.arange(n))
+
+
+def test_x3_plan_built_once_per_geometry(monkeypatch):
+    """CudaUpsampler builds the tap tables, kernel tables and frame
+    descriptor once per geometry and device: the U and V planes share one
+    plane plan, a second picture reuses everything (no plan_axis call),
+    and a new geometry builds its own."""
+    calls = []
+    inner = x3.plan_axis
+
+    def counted(*a, **kw):
+        calls.append(a)
+        return inner(*a, **kw)
+    monkeypatch.setattr(x3, "plan_axis", counted)
+    up = x3.CudaUpsampler()
+    rng = np.random.default_rng(3)
+    bl = [torch.as_tensor(rng.integers(0, 256, s).astype(np.int32))
+          for s in ((40, 72), (20, 36), (20, 36))]
+    first = up.upsample_frame(bl, 144, 80)
+    assert len(calls) == 4 and len(up._plans) == 2 and len(up._frames) == 1
+    plans = up.frame_plans(bl, 144, 80)
+    second = up.upsample_frame(bl, 144, 80)
+    assert len(calls) == 4 and len(up._frames) == 1
+    assert all(a[1] is b[1] for a, b in zip(plans,
+                                            up.frame_plans(bl, 144, 80)))
+    assert plans[1][1] is plans[2][1]           # U and V: one plan
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    up.upsample_frame(bl, 108, 60)
+    assert len(calls) == 8 and len(up._plans) == 4 and len(up._frames) == 2
+    up.upsample_frame(bl, 144, 80, phase_align_flag=1)
+    assert len(calls) == 12 and len(up._frames) == 3
+
+
+def _c_layout(src, name):
+    """[(field, offset)] and sizeof of struct ``name`` in ``src``, by the
+    C layout rules for its member types (CUtensorMap: 128 bytes, aligned
+    to 64; pointers 8; int 4; X3Plane arrays)."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+    kinds = {"CUtensorMap": (128, 64), "int": (4, 4), "ptr": (8, 8)}
+    if name == "X3Frame":
+        kinds["X3Plane"] = _c_layout(src, "X3Plane")[1:]
+    fields, at, align = [], 0, 1
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if not line:
+            continue
+        m = re.fullmatch(r"(?:const )?(\w+)(\*?) (.+);", line)
+        for decl in m.group(3).split(","):
+            decl = decl.strip()
+            count = 1
+            arr = re.fullmatch(r"(\w+)\[(\w+)\]", decl)
+            if arr:
+                decl, count = arr.group(1), x3.MAX_PLANES
+                assert arr.group(2) == "kMaxPlanes"
+            size, al = kinds["ptr" if m.group(2) else m.group(1)]
+            at = -(-at // al) * al
+            fields.append((decl, at))
+            at += size * count
+            align = max(align, al)
+    return fields, -(-at // align) * align, align
+
+
+def test_x3_frame_descriptor_matches_the_c_structs():
+    """_PLANE and _FRAME_SIZE, the bytes pack_frame writes and the
+    launcher's ohk_upsample_frame_size (which cuda_lib.check_size holds
+    them to on the card), follow csrc/upsample.cu's X3Plane and X3Frame
+    field by field; and a picture's descriptor holds its planes' tables
+    and geometry."""
+    with open(os.path.join(ROOT, "openhevc_tpu_torch", "csrc",
+                           "upsample.cu")) as f:
+        src = f.read()
+    plane, plane_size, _ = _c_layout(src, "X3Plane")
+    frame, frame_size, _ = _c_layout(src, "X3Frame")
+    assert plane_size == x3._PLANE.size and frame_size == x3._FRAME_SIZE
+    assert [n for n, _ in plane] == ["map"] + list(PLANE_FIELDS)
+    assert [n for n, _ in frame] == ["p"] + list(FRAME_FIELDS)
+    types = "P" * 6 + "i" * 10
+    assert x3._PLANE.format == f"@128x{types[:6]}{types[6:]}40x".replace(
+        "PPPPPP", "6P").replace("iiiiiiiiii", "10i")
+    assert [o for _, o in plane] == [0] + [
+        struct.calcsize("@128x" + types[:k + 1]) - struct.calcsize(types[k])
+        for k in range(len(types))]
+    assert [o for _, o in frame] == [0] + [
+        x3.MAX_PLANES * x3._PLANE.size + 4 * k for k in range(3)]
+    assert dict(plane)["src"] == 128            # where _SRC_OUT writes
+    up = x3.CudaUpsampler()
+    bl = [torch.zeros(s, dtype=torch.int32)
+          for s in ((40, 72), (20, 36), (20, 36))]
+    planes, fplan = up._planes(bl, 144, 80, 1, 0)
+    assert len(fplan.desc) == x3._FRAME_SIZE
+    fields, n_tiles, max_val = _frame_fields(fplan.desc)
+    assert (n_tiles, max_val) == (3 * 2 + 2 * 2 * 1, 0)
+    for P, (p, plan) in zip(fields, zip(planes, fplan.planes)):
+        kp = plan[4]
+        base = kp.tab.data_ptr()
+        assert [P[k] for k in ("xtab", "ytab", "wx", "wy")] == [
+            base + 4 * a for a in kp.at]
+        assert (P["src"], P["out"], P["tma"]) == (0, 0, 0)
+        assert (P["h_bl"], P["w_bl"]) == tuple(p.shape) == kp.shape_bl
+        assert (P["h_el"], P["w_el"]) == kp.shape_el
+        assert (P["box_h"], P["box_w"], P["taps"]) == kp.box + (kp.taps,)
+    assert [P["first_tile"] for P in fields] == [0, 6, 8]
 
 
 def test_x3_path_follows_openhevc_upsample(monkeypatch):
@@ -301,7 +522,7 @@ def test_x3_path_follows_openhevc_upsample(monkeypatch):
     want = [x3.upsample_plane(p, *plan[:4], bit_depth=10)
             for p, plan in plans]
     for p, plan in plans:
-        assert all(t.dtype == torch.int32 for t in plan[:4] + plan[4][:2])
+        assert all(t.dtype == torch.int32 for t in plan[:4] + (plan[4].tab,))
     for got in outs:
         for a, b in zip(got, want):
             assert torch.equal(a, b)
